@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels (sources in ``csrc/``), each with its plain PyTorch version.
+
+Nothing is compiled at import: a kernel is built at its first CUDA launch."""
