@@ -5,6 +5,13 @@ reference's three forms of the same operator: the ring gather
 Pallas kernel ``ring_mv_pallas`` in interpret mode.  f64 on the CPU;
 rtol 1e-12 (the forms sum the same products in different orders).
 
+Block-Jacobi apply port: ``block_diag_mv`` (plain version of
+``csrc/block_diag_mv.cu``) against the reference's einsum
+(``solvers/assembled.py:487-488``), its Pallas kernel
+``block_diag_mv_pallas`` in interpret mode and a numpy loop; rtol 1e-12.
+The f32 FGMRES solve is held to its f64 twin at 1e-4 (ksp_rtol 1e-5 on
+both, plus f32 roundoff).
+
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against ``ring_mv_reference`` there); here the wrapper must take the
 plain version for CPU tensors without counting a launch."""
@@ -171,3 +178,99 @@ def test_batched_inverse_matches_gauss_jordan():
     A = rng.standard_normal((9, 9, 50)) + 12.0 * np.eye(9)[:, :, None]
     want = jas.batched_inv_small_T(jnp.asarray(A))
     close(tas.batched_inv_small_T(torch.tensor(A)), want, rtol=1e-12)
+
+
+def bjac_case(nc, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((9, 9, nc)), rng.standard_normal((9, nc))
+
+
+@pytest.mark.parametrize("nc", [1, 37, 300])
+def test_block_diag_mv_matches_reference_einsum_and_loop(nc):
+    diag, r = bjac_case(nc, seed=nc)
+    want = jnp.einsum("ijc,jc->ic", jnp.asarray(diag), jnp.asarray(r))
+    ringmv.reset_launches()
+    got = ringmv.block_diag_mv(torch.tensor(diag), torch.tensor(r))
+    assert ringmv.launches("block_diag_mv") == 0
+    close(got, want)
+    loop = np.stack([diag[:, :, c] @ r[:, c] for c in range(nc)], axis=1)
+    close(got, loop)
+
+
+def test_block_diag_mv_matches_pallas_interpret():
+    from thetis_tpu.kernels import ringmv as jrm
+
+    diag, r = bjac_case(50, seed=9)
+    old = jrm._INTERPRET
+    jrm._INTERPRET = True
+    try:
+        want = jrm.block_diag_mv_pallas(jnp.asarray(diag), jnp.asarray(r))
+    finally:
+        jrm._INTERPRET = old
+    assert want is not None
+    close(ringmv.block_diag_mv(torch.tensor(diag), torch.tensor(r)), want)
+
+
+def test_ring_solve_preconditions_through_block_diag_mv(monkeypatch):
+    """The FGMRES block-Jacobi goes through ``block_diag_mv`` (the kernel
+    on the card): count its calls in one ring solve."""
+    from thetis_tpu_torch.solvers import assembled as tas_mod
+
+    jm, tm, ring, valid, blocks, x = setup_case("periodic", seed=10)
+    blocks = blocks + 20.0 * np.eye(9)[None, None] * (
+        np.arange(4) == 0)[None, :, None, None]
+    bT, xT, ring_t, valid_t = port_args(tm, blocks, x)
+    calls = []
+    real = tas_mod.block_diag_mv
+
+    def spy(d, v):
+        calls.append(v.shape)
+        return real(d, v)
+
+    monkeypatch.setattr(tas_mod, "block_diag_mv", spy)
+    b = torch.tensor(x)
+    got = tas.ring_gmres(bT, ring_t, valid_t, b, torch.zeros_like(b), b,
+                         rtol=1e-10, restart=10, max_cycles=5)
+    assert calls and all(c == (9, tm.nc) for c in calls)
+    close(tas.ring_apply_T(bT, got, ring_t, valid_t), x, rtol=1e-8)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "r_dtype", "d", "nc", "noncontig"])
+def test_block_diag_mv_rejects_bad_inputs(bad):
+    diag, r = (torch.tensor(a) for a in bjac_case(20, seed=12))
+    if bad == "dtype":
+        diag, r = diag.to(torch.float16), r.to(torch.float16)
+    elif bad == "r_dtype":
+        r = r.float()
+    elif bad == "d":
+        diag, r = diag[:3, :3].contiguous(), r[:3].contiguous()
+    elif bad == "nc":
+        r = r[:, :-1].contiguous()
+    elif bad == "noncontig":
+        r = torch.tensor(np.ascontiguousarray(
+            bjac_case(20, seed=12)[1].T)).T
+    with pytest.raises((TypeError, ValueError)):
+        ringmv.block_diag_mv(diag, r)
+
+
+def test_fgmres_f32_converges_at_large_residual_scale():
+    """The breakdown guard is scale-free: an f32 solve whose residual norm
+    is ~1e8 (the 3D bench's barotropic system) still converges.  The
+    reference's guard (new Arnoldi norm against eps * beta) reads every
+    Arnoldi step of such a solve as a breakdown in f32; in f64 both guards
+    take the same path (the CN parity tests)."""
+    jm, tm, ring, valid, blocks, x = setup_case("periodic", seed=13)
+    blocks = 0.1 * blocks + 5.0 * np.eye(9)[None, None] * (
+        np.arange(4) == 0)[None, :, None, None]
+    bT, _, ring_t, valid_t = port_args(tm, blocks, x)
+    b = torch.tensor(x) * 1e8
+    sols = {}
+    for dt in (torch.float64, torch.float32):
+        bb = b.to(dt)
+        sols[dt] = tas.ring_gmres(bT.to(dt), ring_t, valid_t, bb,
+                                  torch.zeros_like(bb), bb, rtol=1e-5,
+                                  restart=6, max_cycles=8)
+    res = (tas.ring_apply_T(bT, sols[torch.float32].double(), ring_t,
+                            valid_t) - b).norm() / b.norm()
+    assert float(res) < 1e-4
+    close(sols[torch.float32].double(), sols[torch.float64], rtol=1e-4)

@@ -18,8 +18,10 @@ continuity (d eta/dt = ...):
   HUDivTerm                      (ref L396-450)   implicit
   ContinuitySourceTerm           (ref L814-831)   source
 
-Wetting-and-drying and tidal turbines are not ported yet: the equation
-raises ``NotImplementedError`` when either is requested.
+:class:`ModeSplit2DEquations` is the reduced barotropic system of the 3D
+mode-split step.  Wetting-and-drying and tidal turbines are not ported
+yet: the equation raises ``NotImplementedError`` when either is
+requested.
 
 Every term is functional (out-of-place updates, no host reads, no
 branching on tensor values), so the value-space block assembly
@@ -34,7 +36,8 @@ from ..config import physical_constants
 from ..fem.assembly import coefficient_cell_q
 from .base import Bucket, EquationBase, facet_quad_value, facet_quad_value_2s
 
-__all__ = ["ShallowWaterEquations", "DepthExpression", "swe_state"]
+__all__ = ["ShallowWaterEquations", "ModeSplit2DEquations",
+           "DepthExpression", "swe_state"]
 
 
 def swe_state(uv, elev):
@@ -614,3 +617,30 @@ class ShallowWaterEquations(EquationBase):
 
         return assemble_swe_blocks(self, u_lag, fields, bnd_values, coeff,
                                    return_residual=return_residual)
+
+
+class ModeSplit2DEquations(ShallowWaterEquations):
+    """Reduced depth-averaged system for mode splitting (port of the
+    reference's ``ModeSplit2DEquations``, ``shallowwater_2d.py:713-737``).
+
+    The barotropic momentum carries only the external pressure gradient,
+    Coriolis, the 2D-3D coupling source (``momentum_source``: the depth
+    average of the full 3D momentum tendency) and atmospheric pressure;
+    advection, viscosity and bottom drag act on the 3D momentum and reach
+    the 2D mode through the coupling source.  The continuity equation is
+    the full HUDiv + volume source."""
+
+    _MODESPLIT_TERMS = frozenset([
+        "ExternalPressureGradientTerm",
+        "CoriolisTerm",
+        "MomentumSourceTerm",
+        "AtmosphericPressureTerm",
+        "HUDivTerm",
+        "ContinuitySourceTerm",
+    ])
+
+    def __init__(self, mesh, asm, options, bathymetry, bnd_conditions=None):
+        super().__init__(mesh, asm, options, bathymetry,
+                         bnd_conditions=bnd_conditions)
+        self.terms = [(n, l, m) for (n, l, m) in self.terms
+                      if n in self._MODESPLIT_TERMS]

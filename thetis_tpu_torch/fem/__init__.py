@@ -1,1 +1,2 @@
-"""Reference elements, DG function spaces and the matrix-free DG assembler."""
+"""Reference elements, DG function spaces, the matrix-free DG assembler
+and its extruded-prism counterpart ``Assembler3D``."""

@@ -12,10 +12,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 from ..config import BUILD_DIR
 
-__all__ = ["load_library", "CSRC_DIR"]
+__all__ = ["load_library", "build_libraries", "CSRC_DIR"]
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -34,26 +35,63 @@ def _nvcc():
         "kernels are built from source at first use")
 
 
+def _paths(name):
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_libraries(names):
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is not
+    built yet, one ``nvcc`` process per source, all started together.
+    Returns ``{name: seconds}`` for the sources compiled (0.0 for those
+    already built); raises if any build fails."""
+    t0 = time.perf_counter()
+    procs = {}
+    secs = {}
+    for name in names:
+        src, path = _paths(name)
+        if os.path.exists(path):
+            secs[name] = 0.0
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        # compiler output goes to a file: a full pipe would stall nvcc
+        log = open(tmp + ".log", "w+")
+        procs[name] = (src, path, tmp, cmd, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT))
+    failed = []
+    pending = dict(procs)
+    while pending:
+        for name, (src, path, tmp, cmd, log, proc) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            secs[name] = time.perf_counter() - t0
+            del pending[name]
+            log.seek(0)
+            out = log.read()
+            log.close()
+            os.remove(tmp + ".log")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src} ({proc.returncode}):"
+                              f"\n{' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, path)
+        time.sleep(0.02)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return secs
+
+
 def load_library(name):
     """Compile ``csrc/<name>.cu`` (once per source version) and return the
     loaded ``ctypes.CDLL``.  Raises if the build fails."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src} ({proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
+    build_libraries([name])
+    lib = ctypes.CDLL(_paths(name)[1])
     _loaded[name] = lib
     return lib

@@ -1,1 +1,2 @@
-"""Unstructured 2D meshes: ``Mesh2d`` and the rectangle generators."""
+"""Unstructured 2D meshes (``Mesh2d``, the rectangle generators) and the
+sigma-layer ``ExtrudedMesh``."""

@@ -4,8 +4,8 @@ r"""Assembled 1-ring Krylov solve (port of the analytic-path parts of
 The semi-implicit SWE stage systems are affine in the solution with
 exact 1-ring sparsity for P1DG: ``equations/swe_blocks.py`` assembles the
 per-step operator as component-major blocks ``(4, 9, 9, nc)`` and the
-whole FGMRES loop runs on ring matvecs (the CUDA kernel in
-``kernels/ringmv.py``) and block-Jacobi applications, the analogue of
+whole FGMRES loop runs on ring matvecs and block-Jacobi applications (the
+two CUDA kernels of ``kernels/ringmv.py``), the analogue of
 PETSc's assembled-Jacobian KSP (the reference's 2D default,
 ``options.py:44-48``).
 
@@ -16,7 +16,7 @@ probing, the coarse/Schur preconditioners and the custom VJPs.
 import numpy as np
 import torch
 
-from ..kernels.ringmv import ring_mv
+from ..kernels.ringmv import block_diag_mv, ring_mv
 
 __all__ = ["cell_ring", "ring_tables", "batched_inv_small_T", "PackedState",
            "ring_apply", "ring_apply_T", "ring_gmres"]
@@ -85,8 +85,7 @@ def _ring_solve_impl(blocks_T, ring, valid, b, diag_inv_T, rtol, restart,
         return ring_mv(blocks_T, v.reshape(d, nc), ring, valid).reshape(-1)
 
     def M(v):  # block-Jacobi: inverted diagonal (slot-0) blocks
-        return torch.einsum("ijc,jc->ic", diag_inv_T,
-                            v.reshape(d, nc)).reshape(-1)
+        return block_diag_mv(diag_inv_T, v.reshape(d, nc)).reshape(-1)
 
     x, rnorm, bnorm = _fgmres_flat(mv, b.T.reshape(-1), M, rtol, restart,
                                    max_cycles)

@@ -4,8 +4,9 @@ runs: :class:`NewtonParameters` and the restarted FGMRES core).
 
 The reference runs FGMRES inside ``lax.while_loop``/``fori_loop``; here
 the loops are eager Python.  The Arnoldi loop keeps exactly ``restart``
-iterations with the reference's breakdown guard, so both packages walk
-the same Krylov path, and each restart cycle costs one host sync (the
+iterations with a breakdown guard, so both packages walk the same Krylov
+path wherever the reference's guard does not fire spuriously (see
+``_fgmres_flat``), and each restart cycle costs one host sync (the
 small least-squares problem and the convergence test run on the host).
 The matrix-free Newton solve and its adjoint are not ported yet.
 """
@@ -65,13 +66,17 @@ def _fgmres_flat(mv, b, M, rtol, restart, max_cycles):
         for j in range(m):
             z = M(V[j])
             w = mv(z)
+            wnorm = torch.linalg.vector_norm(w)
             # Gram-Schmidt against all rows: rows > j are still zero
             h = V @ w                                     # (m+1,)
             w = w - h @ V
             hj1 = torch.linalg.vector_norm(w)
-            # breakdown (Krylov space exhausted): keep a zero basis row
-            # instead of dividing by ~0; the least squares ignores it
-            v_next = torch.where(hj1 > brk * beta_floor,
+            # breakdown (Krylov space exhausted: w lay in the basis up to
+            # roundoff): keep a zero basis row instead of dividing by ~0;
+            # the least squares ignores it.  The test is relative to |A z|
+            # (scale-free); the reference's eps * beta mixes residual and
+            # operator units and fires spuriously in f32 when beta is large
+            v_next = torch.where(hj1 > brk * wnorm,
                                  w / torch.clamp_min(hj1, tiny),
                                  torch.zeros_like(w))
             H[:, j] = h
