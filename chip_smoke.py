@@ -11,7 +11,12 @@ version:
   its barotropic CN solve, the ring matvec and block-Jacobi kernels;
 * the 2D semi-implicit CrankNicolson step (the CN workload: 320x160
   rectangle, 102,400 cells, 921,600 DOF, f32): ring matvec and
-  block-Jacobi.
+  block-Jacobi;
+* the 2D model, ``FlowSolver2d``, entered as a user enters it, on the
+  same 320x160 workloads: SSPRK33 (no kernel on its path), the
+  semi-implicit CN, the CN under each preconditioner of the CFL policy
+  (coarse correction, Schur fieldsplit) and the Newton CN with the
+  assembled wave preconditioner (ring matvec and block-Jacobi inside it).
 
 Phases, each printing its lines:
 
@@ -24,7 +29,17 @@ Phases, each printing its lines:
    the CPU (the port's plain path);
 6. 3D slice: 1 warm-up + 20 timed f32 steps (the bench's n), launches per
    step, rates, peak memory, a per-phase and a profiler breakdown;
-7. 3D parity: one f64 step on the GPU against the CPU plain path.
+7. 3D parity: one f64 step on the GPU against the CPU plain path;
+8. 2D model, SSPRK33, f32, full size: 1 warm-up + 30 timed steps through
+   ``iterate()``, rates, launches, a profiler count per step;
+9. 2D model, semi-implicit CN, f32, full size: 1 warm-up + 10 timed
+   steps, held against phase 4's final state and launch counts;
+10. 2D model, the preconditioner policy, f32, full size: CN at 12 and 50
+    hmin/c (coarse correction, Schur fieldsplit) and the Newton CN, 1
+    warm-up + 3 timed steps each; setup seconds, Newton iterations,
+    FGMRES cycles, launches, ms/step, peak memory, final residuals;
+11. 2D model parity, f64, 80x40: one step of each configuration of
+    phases 8-10 on the GPU against the CPU plain path.
 
 Then one JSON line describing each kernel, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -50,8 +65,9 @@ from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
 from thetis_tpu_torch.kernels import ringmv, tridiag
 from thetis_tpu_torch.mesh.generation import (PeriodicRectangleMesh,
                                               RectangleMesh)
+from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 from thetis_tpu_torch.model.flowsolver3d import FlowSolver
-from thetis_tpu_torch.solvers.assembled import ring_tables
+from thetis_tpu_torch.solvers.assembled import get_coloring, ring_tables
 from thetis_tpu_torch.solvers.newton import NewtonParameters
 from thetis_tpu_torch.timeintegration.steppers import get_stepper
 from thetis_tpu_torch.utils.coordsys import beta_plane_coriolis_params
@@ -67,7 +83,38 @@ KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # one f64 step, GPU kernels vs CPU plain path: same Krylov path, sums in
 # other orders; the solve amplifies 1e-16 roundoff by its conditioning
 PARITY_RTOL = 1e-9
+# phase 9 against phase 4: the two runs hold the 50 m depth as a scalar
+# (bench.py) and as the model's CG1 field, which differ in f32 roundoff;
+# each step's solve stops at ksp_rtol 1e-5, so over 11 steps the states
+# differ at that tolerance, not at roundoff (CPU f32: 2.1e-5 of max on uv)
+MODEL_CN_RTOL = 1e-4
 KERNELS = ("ring_mv", "tridiag", "block_diag_mv")
+STEPS_SSP = 30                          # bench.py:211-212
+NX_PARITY, NY_PARITY = 80, 40           # phase 11's CPU-affordable mesh
+#: FlowSolver2d configurations: (stepper, semi-implicit, dt in hmin/c,
+#: NewtonParameters keywords, the PC the CFL policy should pick).  The
+#: coarse / Schur cases take the policy's restart (24) at the bench's
+#: ksp_rtol (1e-5; f32 cannot reach the policy's default 1e-7) with 8
+#: cycles; the Newton case the policy's restart/cap (8/24) at ksp_rtol
+#: 1e-5 and snes_rtol 1e-4: in f32 the Newton residual of this step
+#: stalls near 1e-5 of its start (the residual's terms are ~100x the
+#: step's change, each rounded at 6e-8), so a lower snes_rtol, the
+#: default 1e-8 included, runs every step to snes_max_it = 8 iterations.
+MODEL2D = {
+    "ssprk33": ("SSPRK33", None, 0.08, None, None),
+    "cn": ("CrankNicolson", True, 2.0,
+           dict(ksp_rtol=1e-5, ksp_max_it=32, gmres_restart=RESTART),
+           "NoneType"),
+    "cn_coarse": ("CrankNicolson", True, 12.0,
+                  dict(ksp_rtol=1e-5, ksp_max_it=192, gmres_restart=24),
+                  "CoarseCorrection"),
+    "cn_schur": ("CrankNicolson", True, 50.0,
+                 dict(ksp_rtol=1e-5, ksp_max_it=192, gmres_restart=24),
+                 "SchurFieldsplitPC"),
+    "cn_newton": ("CrankNicolson", False, 2.0,
+                  dict(snes_rtol=1e-4, ksp_rtol=1e-5, ksp_max_it=24,
+                       gmres_restart=8), "AssembledWavePC"),
+}
 SOURCES = {"ring_mv": ("thetis_tpu_torch/csrc/ring_mv.cu",
                        "thetis_tpu/kernels/ringmv.py:45"),
            "tridiag": ("thetis_tpu_torch/csrc/tridiag.cu",
@@ -224,6 +271,64 @@ def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3):
     return s, s._get_state(), s._gather_swe_fields(), n_dofs
 
 
+def model2d(config, device, dtype, nx=NX, ny=NY, mesh=None):
+    """The bench's 2D case entered through the model API:
+    ``FlowSolver2d(mesh, 50.0)``, ``.options``, ``initialize()`` and
+    ``assign_initial_conditions`` (the Gaussian of bench.py:67-70).
+    Returns ``(solver, setup seconds)``."""
+    stepper, semi, mult, params, _ = MODEL2D[config]
+    if mesh is None:
+        mesh = RectangleMesh(nx, ny, LX, LY, device=device, dtype=dtype)
+    s = FlowSolver2d(mesh, 50.0)
+    o = s.options
+    o.swe_timestepper_type = stepper
+    so = o.swe_timestepper_options
+    if semi is None:
+        so.use_automatic_timestep = False
+    else:
+        so.use_semi_implicit_linearization = semi
+    if params is not None:
+        so.solver_parameters = NewtonParameters(**params)
+    o.timestep = mult * float(mesh.cell_hmin_np.min()) / math.sqrt(9.81 * 51.0)
+    o.quadratic_drag_coefficient = 2.5e-3
+    o.lax_friedrichs_velocity_scaling_factor = 1.0
+    o.no_exports = True
+    _, t_setup = sync_time(s.initialize)
+    # the equation options of bench.py:55-63
+    eo = s.eq_sw.options
+    want = dict(use_nonlinear_equations=True, use_wetting_and_drying=False,
+                use_lax_friedrichs_velocity=True,
+                use_grad_div_viscosity_term=False,
+                use_grad_depth_viscosity_term=True, sipg_factor=1.0,
+                norm_smoother=0.0)
+    got = {k: getattr(eo, k) for k in want}
+    if got != want:
+        raise AssertionError(f"equation options {got} != bench {want}")
+    x = s.function_spaces.H_2d.dof_coords()
+    s.assign_initial_conditions(elev=torch.exp(
+        -(((x[..., 0] - LX / 2) / 15e3) ** 2)
+        - ((x[..., 1] - LY / 2) / 15e3) ** 2))
+    return s, t_setup
+
+
+def iterate_steps(s, n):
+    """``n`` more steps through ``iterate()``: the end time moves on by
+    ``n`` dt and the export interval is set so that they run as one
+    loop."""
+    o = s.options
+    o.simulation_export_time = n * s.dt
+    o.simulation_end_time = s.simulation_time + n * s.dt
+    s.iterate()
+
+
+def check_state(tag, s, shapes):
+    for k, v in s._get_state().items():
+        if tuple(v.shape) != shapes[k]:
+            raise AssertionError(f"{tag}: {k} shape {tuple(v.shape)}")
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: non-finite {k}")
+
+
 # -- phases -------------------------------------------------------------
 def phase_device():
     if not torch.cuda.is_available():
@@ -376,7 +481,7 @@ def phase_slice2d(smi):
         f"block inverse, packing) {ms - asm_ms:.2f} ms/step")
     log(f"[slice2d] max|elev| {float(s['elev'].abs().max()):.4f} m, "
         f"max|uv| {float(s['uv'].abs().max()):.4f} m/s; card: {smi}")
-    return n
+    return n, s
 
 
 def compare(tag, a, b, rtol):
@@ -495,6 +600,162 @@ def phase_parity3d(nx=NX3, ny=NY3):
         f"{PARITY_RTOL:g} x max: ok")
 
 
+def phase_model_ssprk33(smi):
+    s, t_setup = model2d("ssprk33", torch.device("cuda"), torch.float32)
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    n_dofs = s.mesh2d.nc * 9
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    log(f"[model2d ssprk33] f32 {NX}x{NY}: nc={s.mesh2d.nc}, {n_dofs} DOF, "
+        f"dt={s.dt:.4f} s (0.08 hmin/c); setup {t_setup:.2f} s, warm-up "
+        f"step {t_warm * 1e3:.1f} ms")
+    reset_counts()
+    _, t = sync_time(lambda: iterate_steps(s, STEPS_SSP))
+    n = counts()
+    check_state("model2d ssprk33", s, shapes)
+    if s.iteration != STEPS_SSP + 1:
+        raise AssertionError(f"iterate ran {s.iteration} steps")
+    ms = t / STEPS_SSP * 1e3
+    st = s._get_state()
+    f = s._gather_swe_fields()
+    rows = device_rows(lambda: s._advance(0.0, st, f, {}, {}, {}))
+    log(f"[model2d ssprk33] {STEPS_SSP} steps through iterate(): "
+        f"{ms:.2f} ms/step, {n_dofs * STEPS_SSP / t:.4e} DOF*steps/s; "
+        f"launches {n} (no kernel on the explicit path); profiler, one "
+        f"step: {sum(r[1] for r in rows)} device kernels, device busy "
+        f"{sum(r[0] for r in rows) / 1e3:.3f} ms; max|elev| "
+        f"{float(st['elev'].abs().max()):.4f} m; card: {smi}")
+    return n
+
+
+def phase_model_cn(smi, n_slice, s_slice):
+    s, t_setup = model2d("cn", torch.device("cuda"), torch.float32)
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    nsteps = 10
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, t = sync_time(lambda: iterate_steps(s, nsteps))
+    n = counts()
+    check_state("model2d cn", s, shapes)
+    ms = t / nsteps * 1e3
+    errs = []
+    for k in ("elev", "uv"):
+        a, b = s._get_state()[k], s_slice[k]
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        errs.append(f"{k} {err:.2e}/{scale:.2e}")
+        if err > MODEL_CN_RTOL * scale:
+            raise AssertionError(f"model2d cn: FlowSolver2d state differs "
+                                 f"from the hand-wired run: {errs}")
+    if (n["ring_mv"], n["block_diag_mv"]) != (n_slice["ring_mv"],
+                                              n_slice["block_diag_mv"]):
+        raise AssertionError(f"model2d cn launches {n} != hand-wired "
+                             f"{n_slice}")
+    log(f"[model2d cn] f32 {NX}x{NY}, dt={s.dt:.3f} s (2 hmin/c), policy "
+        f"PC {type(s.timestepper.coarse).__name__}: setup {t_setup:.2f} s, "
+        f"warm-up {t_warm * 1e3:.1f} ms; {nsteps} steps through iterate(): "
+        f"{ms:.2f} ms/step, {9 * s.mesh2d.nc * nsteps / t:.4e} "
+        f"DOF*steps/s; launches {n} (= phase 4's); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; against "
+        f"phase 4's final state max|diff|/max {'; '.join(errs)} <= "
+        f"{MODEL_CN_RTOL:g}; "
+        f"card: {smi}")
+    return n
+
+
+def phase_model_policy(smi):
+    dev = torch.device("cuda")
+    mesh = RectangleMesh(NX, NY, LX, LY, device=dev, dtype=torch.float32)
+    _, t_col = sync_time(lambda: get_coloring(mesh))
+    n_colors = int(get_coloring(mesh)[2].max()) + 1
+    log(f"[model2d policy] distance-2 colouring of {mesh.nc} cells (host): "
+        f"{t_col:.2f} s, {n_colors} colours (cached on the mesh)")
+    total = {k: 0 for k in KERNELS}
+    nsteps = 3
+    for config in ("cn_coarse", "cn_schur", "cn_newton"):
+        torch.cuda.reset_peak_memory_stats()
+        s, t_setup = model2d(config, dev, torch.float32, mesh=mesh)
+        ts = s.timestepper
+        pc = (ts.preconditioner if config == "cn_newton" else ts.coarse)
+        if type(pc).__name__ != MODEL2D[config][4]:
+            raise AssertionError(f"{config}: the policy picked "
+                                 f"{type(pc).__name__}")
+        shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+        _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+        reset_counts()
+        stats = []
+
+        def run():
+            for _ in range(nsteps):
+                iterate_steps(s, 1)
+                stats.append(dict(ts.stats))
+
+        _, t = sync_time(run)
+        n = counts()
+        for k in KERNELS:
+            total[k] += n[k]
+        check_state(f"model2d {config}", s, shapes)
+        params = ts.params
+        if config == "cn_newton":
+            worst = max(x["snes_rel_residual"] for x in stats)
+            limit = params.snes_rtol
+            newton = sum(x["newton_iterations"] for x in stats) / nsteps
+        else:
+            worst = max(x["ksp_rel_residual"] for x in stats)
+            limit = params.ksp_rtol
+            newton = 1.0
+        # the Schur fieldsplit is a full PC: no block-Jacobi in that solve
+        bjac = config != "cn_schur"
+        if n["ring_mv"] == 0 or (n["block_diag_mv"] == 0) == bjac:
+            raise AssertionError(f"{config} launches {n}")
+        if not worst <= limit:
+            raise AssertionError(f"{config}: final relative residual "
+                                 f"{worst:.3e} > requested {limit:g}")
+        cycles = sum(x["ksp_cycles"] for x in stats) / nsteps
+        cfl = s._wave_cfl(ts.theta * s.dt)
+        log(f"[model2d {config}] f32 {NX}x{NY}, dt={s.dt:.3f} s "
+            f"({MODEL2D[config][2]:g} hmin/c, policy CFL {cfl:.2f}), PC "
+            f"{type(pc).__name__}: setup {t_setup:.2f} s, warm-up "
+            f"{t_warm * 1e3:.1f} ms; {nsteps} steps {t / nsteps * 1e3:.2f} "
+            f"ms/step; Newton iterations/step {newton:.2f}, FGMRES cycles/"
+            f"step {cycles:.2f}; per step ring_mv {n['ring_mv'] / nsteps:.1f}"
+            f", block_diag_mv {n['block_diag_mv'] / nsteps:.1f}; worst "
+            f"final relative residual {worst:.3e} <= {limit:g}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: "
+            f"{smi}")
+    return total
+
+
+def phase_model_parity():
+    """One f64 step of each configuration on the GPU (kernels) against
+    the same step on the CPU (plain path)."""
+    for config in MODEL2D:
+        out = {}
+        secs = {}
+        for dev in ("cuda", "cpu"):
+            s, t_setup = model2d(config, torch.device(dev), torch.float64,
+                                 NX_PARITY, NY_PARITY)
+            reset_counts()
+            t0 = time.perf_counter()
+            iterate_steps(s, 1)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                n = counts()
+            secs[dev] = (t_setup, time.perf_counter() - t0)
+            out[dev] = s._get_state()
+        bjac = config not in ("ssprk33", "cn_schur")
+        if (n["ring_mv"] == 0) != (config == "ssprk33") or \
+                (n["block_diag_mv"] == 0) == bjac:
+            raise AssertionError(f"parity {config}: GPU step launches {n}")
+        errs = compare(f"parity model2d {config}", out["cuda"], out["cpu"],
+                       PARITY_RTOL)
+        log(f"[parity model2d {config}] f64 {NX_PARITY}x{NY_PARITY} one "
+            f"step, GPU kernels setup {secs['cuda'][0]:.2f} s + step "
+            f"{secs['cuda'][1]:.2f} s vs CPU plain {secs['cpu'][0]:.2f} + "
+            f"{secs['cpu'][1]:.2f} s: max|diff|/max {errs} <= "
+            f"{PARITY_RTOL:g}: ok")
+
+
 def main():
     name = phase_device()
     smi = card()
@@ -506,18 +767,36 @@ def main():
     kern.update(phase_kernel_tridiag(2 * NX3 * NY3 * 2 * 3, NZ3 + 1))
     phase_kernel_tridiag(NX3 * NY3 * 2 * 3, NZ3 + 1)
     phase_kernel_tridiag(4096, 300)
-    n2 = phase_slice2d(smi)
+    t0 = time.perf_counter()
+    n2, s2 = phase_slice2d(smi)
     phase_parity2d()
+    log(f"[phases 4-5] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     n3 = phase_slice3d(smi)
     phase_parity3d()
+    log(f"[phases 6-7] {time.perf_counter() - t0:.1f} s")
+    nm = {k: 0 for k in KERNELS}
+    for phase, args in ((phase_model_ssprk33, (smi,)),
+                        (phase_model_cn, (smi, n2, s2)),
+                        (phase_model_policy, (smi,))):
+        t0 = time.perf_counter()
+        n = phase(*args)
+        for k in KERNELS:
+            nm[k] += n[k]
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_model_parity()
+    log(f"[phase_model_parity] {time.perf_counter() - t0:.1f} s")
     # kernel times at the 3D main path's shapes; the ring matvec also at
     # the 2D CN bench's ring, as before
     rows = []
     for k in KERNELS:
         k32 = kern[(k, torch.float32)]
         row = {"name": k, "route": "cuda", "source": SOURCES[k][0],
-               "replaces": SOURCES[k][1], "launches": n3[k] + n2[k],
-               "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k]},
+               "replaces": SOURCES[k][1],
+               "launches": n3[k] + n2[k] + nm[k],
+               "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k],
+                                    "flowsolver2d": nm[k]},
                "max_abs_err": k32["max_abs_err"], "ms": k32["ms"],
                "plain_ms": k32["plain_ms"], "device_ms": k32["device_ms"],
                "plain_device_ms": k32["plain_device_ms"]}

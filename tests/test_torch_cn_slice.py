@@ -137,10 +137,10 @@ def test_cn_step_with_separate_old_fields():
 def test_unported_paths_raise():
     _, tst, _, _ = build("rect", "bench")
     eq = tst.equation
-    with pytest.raises(NotImplementedError):
-        t_get_stepper("SSPRK33", eq, 1.0)
-    with pytest.raises(NotImplementedError):
-        t_get_stepper("CrankNicolson", eq, 1.0, semi_implicit=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        t_get_stepper("DIRK22", eq, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        t_get_stepper("PressureProjectionPicard", eq, 1.0)
     o = opts()
     o.use_wetting_and_drying = True
     with pytest.raises(NotImplementedError):

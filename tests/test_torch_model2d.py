@@ -1,0 +1,337 @@
+"""The 2D model of ``thetis_tpu_torch`` as a user drives it, against
+``thetis_tpu`` (f64, CPU): the implicit configurations whose
+preconditioner the CFL policy picks (BackwardEuler, CrankNicolson with
+the coarse correction and with the Schur fieldsplit), ``iterate()`` with
+``update_forcings``, a time-step callback and the volume callback (same
+iteration counts, export times, ``print_state`` lines and final state),
+``create_iterator``, initial-condition interpolation, the demo's body
+through the port's facade, and the options the port refuses.
+
+Tolerances: implicit steps 1e-9 and the explicit ``iterate`` runs 1e-12
+of each field's max; ``print_state`` lines equal but for the CPU-time
+field; the demo's volume conserved to 1e-10 (relative)."""
+import os
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import thetis_tpu.utils.log as jlog  # noqa: E402
+from thetis_tpu.model.callback import (  # noqa: E402
+    VolumeConservation2DCallback as JVolume)
+from thetis_tpu.utils.constant import Constant as JConstant  # noqa: E402
+import thetis_tpu_torch.utils.log as tlog  # noqa: E402
+from thetis_tpu_torch.interop import flowsolver2d_from_reference  # noqa: E402
+from thetis_tpu_torch.model.callback import (  # noqa: E402
+    VolumeConservation2DCallback as TVolume)
+from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d  # noqa: E402
+from thetis_tpu_torch.utils.constant import Constant as TConstant  # noqa: E402
+from test_torch_flowsolver2d import (  # noqa: E402
+    CONFIGS, LX, meshes, one_torch_thread, reference_solver, run_pair)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def close(got, want, rtol):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+#: a KSP budget that solves the small step systems to roundoff
+TIGHT = dict(ksp_rtol=1e-12, ksp_max_it=480, gmres_restart=48)
+
+
+@pytest.mark.parametrize("config", ["backward_euler", "cn_coarse",
+                                    "cn_schur"])
+def test_policy_preconditioners_match_reference(config):
+    """The PC the CFL policy picks, and the step.  The coarse case: the
+    port builds the per-field coarse space (the reference's stalls
+    FGMRES, ROADMAP C), so both solve the step system to roundoff (the
+    reference on plain block-Jacobi) and must reach the same state."""
+    coarse = CONFIGS[config][3]
+    ref, port = run_pair("rect", config,
+                         TIGHT if config == "cn_coarse" else None)
+    assert type(ref.timestepper.coarse).__name__ == coarse
+    assert type(port.timestepper.coarse).__name__ == coarse
+    if config == "cn_coarse":
+        assert port.timestepper.coarse.nd_c == 3  # eta, u, v per aggregate
+        ref.timestepper.coarse = None
+    ref.iterate()
+    port.iterate()
+    assert (port.iteration, port.i_export) == (ref.iteration, ref.i_export)
+    for key in ("elev_2d", "uv_2d"):
+        close(port.fields[key].data, ref.fields[key].data, 1e-9)
+    limit = 1e-12 if config == "cn_coarse" else 1e-6
+    assert port.timestepper.stats["ksp_rel_residual"] < limit
+
+
+def test_reference_coarse_space_vcycle_matches_reference():
+    """With the reference's per-packed-dof coarse space the port's V-cycle
+    takes the reference's Krylov path: 3 steps agree though neither
+    solve converges (the fault of ROADMAP C)."""
+    from thetis_tpu_torch.solvers.assembled import (CoarseCorrection,
+                                                    get_coloring)
+    ref, port = run_pair("rect", "cn_coarse")
+    jcc = ref.timestepper.coarse
+    tcc = _reference_space_coarse(port)
+    assert isinstance(tcc, CoarseCorrection) and tcc.nd_c == 9
+    assert tcc.n_agg == jcc.n_agg
+    close(tcc.Ac_inv, jcc.Ac_inv, 1e-10)
+    port.timestepper.coarse = tcc
+    ref.iterate()
+    port.iterate()
+    for key in ("elev_2d", "uv_2d"):
+        close(port.fields[key].data, ref.fields[key].data, 1e-9)
+    assert port.timestepper.stats["ksp_rel_residual"] > 1e-2
+    assert get_coloring(port.mesh2d) is get_coloring(port.mesh2d)
+
+
+def _reference_space_coarse(port):
+    """``FlowSolver2d._build_coarse``'s operator with the reference's
+    coarse space."""
+    from thetis_tpu_torch.solvers.assembled import (
+        CoarseCorrection, PackedState, assemble_affine_operator, get_coloring)
+
+    eq = port.eq_sw
+    coeff = port.timestepper.theta * port.dt
+    zero = {"uv": torch.zeros_like(port.fields.uv_2d.data),
+            "elev": torch.zeros_like(port.fields.elev_2d.data)}
+    ps = PackedState(zero)
+    bz = {m: {k: 0.0 for k in keys} for m, keys in eq.bnd_keys.items()}
+
+    def F(x):
+        st = ps.unpack(x)
+        r = eq.residual("all", st, zero, {}, {}, bz)
+        m = eq.mass_term(st)
+        return ps.pack({k: m[k] - coeff * r[k] for k in m})
+
+    blocks, _ = assemble_affine_operator(F, ps.pack(zero), eq.mesh)
+    return CoarseCorrection(blocks, get_coloring(eq.mesh)[0], eq.mesh)
+
+
+def _state_lines(buf, start):
+    """print_state lines logged since ``start``, without the CPU time."""
+    return [" ".join(line.split()[:-1]) for line in buf[start:]
+            if "eta norm" in line]
+
+
+def test_iterate_with_forcings_and_callbacks():
+    """SSPRK33, dt not dividing the export interval (the t_epsilon
+    cadence), a Constant drag and BC elevation updated every step, a
+    user time-step callback and the volume callback."""
+    jm, tm = meshes("rect")
+    dt = 0.05 * LX / 12 / np.sqrt(9.81 * 25.0)
+    ref = reference_solver(jm, "rect", "ssprk33", dt=dt)
+    ref.options.simulation_export_time = 2.5 * dt
+    ref.options.simulation_end_time = 8 * dt
+    jdrag = JConstant(2.5e-3)
+    ref.options.quadratic_drag_coefficient = jdrag
+    ref.bnd_functions["shallow_water"][1] = {"elev": JConstant(0.05)}
+    port = flowsolver2d_from_reference(ref, tm)
+    assert isinstance(port.options.quadratic_drag_coefficient, TConstant)
+    logs = {}
+    for name, s, volume in (("ref", ref, JVolume), ("port", port, TVolume)):
+        drag = s.options.quadratic_drag_coefficient
+        bc = s.bnd_functions["shallow_water"][1]["elev"]
+        rec = {"forcing": [], "step": [], "export": []}
+
+        def update_forcings(t, drag=drag, bc=bc, rec=rec):
+            rec["forcing"].append(t)
+            drag.assign(2.5e-3 * (1.0 + t / 100.0))
+            bc.assign(0.05 * np.cos(t / 50.0))
+
+        class StepRecorder(volume):
+            name = "step_recorder"
+
+            def __call__(self, s=s, rec=rec):
+                rec["step"].append((s.iteration, s.simulation_time))
+                return super().__call__()
+
+        s.add_callback(StepRecorder(s), "timestep")
+        s.add_callback(volume(s), "timestep")
+        buf = jlog._memory_buffer if name == "ref" else tlog._memory_buffer
+        start = len(buf)
+        s.iterate(update_forcings=update_forcings,
+                  export_func=lambda s=s, rec=rec: rec["export"].append(
+                      (s.i_export, s.iteration, s.simulation_time)))
+        rec["lines"] = _state_lines(buf, start)
+        rec["volume"] = [line for line in buf[start:]
+                         if line.startswith("volume2d")]
+        logs[name] = rec
+    a, b = logs["ref"], logs["port"]
+    assert b["export"] == a["export"] and len(b["export"]) == 3
+    assert b["step"] == a["step"] and len(b["step"]) == 8
+    np.testing.assert_allclose(b["forcing"], a["forcing"], rtol=1e-15)
+    assert b["lines"] == a["lines"] and len(b["lines"]) == 4
+    assert len(b["volume"]) == len(a["volume"]) == 8
+    assert (port.iteration, port.i_export) == (ref.iteration, ref.i_export)
+    for key in ("elev_2d", "uv_2d"):
+        close(port.fields[key].data, ref.fields[key].data, 1e-12)
+
+
+def test_create_iterator_and_scan_cadence():
+    """``create_iterator`` yields each step's time; ``iterate`` without
+    callbacks runs the export intervals as loops of the reference's scan
+    lengths."""
+    jm, tm = meshes("periodic")
+    ref = reference_solver(jm, "periodic", "ssprk33")
+    dt = ref.dt
+    ref.options.simulation_export_time = 2 * dt
+    ref.options.simulation_end_time = 5 * dt
+    port = flowsolver2d_from_reference(ref, tm)
+    ref2 = reference_solver(jm, "periodic", "ssprk33")
+    ref2.options.simulation_export_time = 2 * dt
+    ref2.options.simulation_end_time = 5 * dt
+    port2 = flowsolver2d_from_reference(ref2, tm)
+    times = {}
+    for name, s in (("ref", ref), ("port", port)):
+        times[name] = list(s.create_iterator())
+    np.testing.assert_allclose(times["port"], times["ref"], rtol=1e-15)
+    exports = {}
+    for name, s in (("ref", ref2), ("port", port2)):
+        rec = []
+        s.iterate(export_func=lambda s=s, rec=rec: rec.append(
+            (s.i_export, s.iteration)))
+        exports[name] = rec
+    assert exports["port"] == exports["ref"] == [(1, 2), (2, 4)]
+    for key in ("elev_2d", "uv_2d"):
+        close(port.fields[key].data, ref.fields[key].data, 1e-12)
+        close(port2.fields[key].data, ref2.fields[key].data, 1e-12)
+
+
+def test_interp_initial_conditions():
+    """CG1 Function, CG1 vertex array, DG array and scalar initial
+    conditions land on the DG dofs as in the reference (exact)."""
+    from thetis_tpu.fem.functionspace import (FunctionSpace as JFS,
+                                              Function as JF)
+    from thetis_tpu_torch.fem.functionspace import (FunctionSpace as TFS,
+                                                    Function as TF)
+    jm, tm = meshes("rect")
+    ref = reference_solver(jm, "rect", "ssprk33")
+    port = flowsolver2d_from_reference(ref, tm)
+    v = 1.0 + jm.coords_np[:, 0] / LX
+    cases = [
+        (JF(JFS(jm, "CG", 1), data=v), TF(TFS(tm, "CG", 1), data=v), None),
+        (v, torch.tensor(v), None),
+        (0.3, 0.3, None),
+        (None, None, np.stack([v, -v], axis=-1)),
+    ]
+    for je, te, uv in cases:
+        if uv is None:
+            ref.assign_initial_conditions(elev=je)
+            port.assign_initial_conditions(elev=te)
+        else:
+            ref.assign_initial_conditions(uv=uv)
+            port.assign_initial_conditions(uv=torch.tensor(uv))
+        for key in ("elev_2d", "uv_2d"):
+            np.testing.assert_array_equal(port.fields[key].data.numpy(),
+                                          np.asarray(ref.fields[key].data))
+    assert port.compute_volume_2d() == pytest.approx(
+        ref.compute_volume_2d(), rel=1e-14)
+
+
+def test_demo_2d_channel_through_the_facade():
+    """``demos/demo_2d_channel.py`` with its import line changed to the
+    port and its end time cut to 3 exports."""
+    with open(os.path.join(ROOT, "demos", "demo_2d_channel.py")) as f:
+        src = f.read()
+    assert src.count("from thetis_tpu import *") == 1
+    assert src.count("t_end = 2 * 3600") == 1
+    src = src.replace("from thetis_tpu import *",
+                      "from thetis_tpu_torch import *")
+    src = src.replace("t_end = 2 * 3600", "t_end = 300.0")
+    ns = {"__name__": "demo"}
+    exec(compile(src, "demo_2d_channel.py", "exec"), ns)
+    s = ns["solver_obj"]
+    assert isinstance(s, FlowSolver2d)
+    assert s.mesh2d.device.type in ("cpu", "cuda")
+    v0 = s.compute_volume_2d()
+    s.iterate()
+    assert s.iteration == 6 and s.i_export == 3
+    for key in ("elev_2d", "uv_2d"):
+        assert bool(torch.isfinite(s.fields[key].data).all())
+    assert float(s.fields.uv_2d.data.abs().max()) > 1e-3
+    assert abs(s.compute_volume_2d() - v0) <= 1e-10 * abs(v0)
+
+
+def _opts_refused():
+    def tracer(o):
+        o.add_tracer_2d("tracer_2d")
+
+    def sediment(o):
+        o.sediment_model_options.solve_suspended_sediment = True
+
+    def exner(o):
+        o.sediment_model_options.use_exner = True
+
+    def nh(o):
+        o.nh_model_options.solve_nonhydrostatic_pressure = True
+
+    def turbines(o):
+        o.tidal_turbine_farms = {"everywhere": object()}
+
+    def wetting_drying(o):
+        o.use_wetting_and_drying = True
+
+    def family(name):
+        def f(o):
+            o.element_family = name
+        return f
+
+    def stepper(name):
+        def f(o):
+            o.swe_timestepper_type = name
+        return f
+
+    return {"tracer": tracer, "sediment": sediment, "exner": exner,
+            "nh": nh, "turbines": turbines, "wetting_drying": wetting_drying,
+            "dg-cg": family("dg-cg"), "rt-dg": family("rt-dg"),
+            "bdm-dg": family("bdm-dg"), "DIRK22": stepper("DIRK22"),
+            "PressureProjectionPicard": stepper("PressureProjectionPicard"),
+            "SteadyState": stepper("SteadyState")}
+
+
+REFUSED = _opts_refused()
+
+
+def _port_solver(**opts):
+    _, tm = meshes("rect")
+    s = FlowSolver2d(tm, 20.0)
+    s.options.no_exports = True
+    for k, v in opts.items():
+        setattr(s.options, k, v)
+    return s
+
+
+@pytest.mark.parametrize("what", sorted(REFUSED))
+def test_unported_options_raise(what):
+    s = _port_solver()
+    REFUSED[what](s.options)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        s.initialize()
+
+
+@pytest.mark.parametrize("what", ["exporters", "load_state", "hdf5",
+                                  "differentiable_forward"])
+def test_unported_entry_points_raise(what):
+    s = _port_solver()
+    if what == "exporters":
+        s.options.no_exports = False
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            s.initialize()
+        return
+    s.initialize()
+    if what == "load_state":
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            s.load_state(0)
+    elif what == "hdf5":
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            TVolume(s, export_to_hdf5=True)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            s.differentiable_forward(["initial_elev"])

@@ -1,16 +1,16 @@
 """thetis_tpu_torch: the PyTorch/CUDA port of ``thetis_tpu``.
 
 The package mirrors ``thetis_tpu``'s module tree (``mesh/``, ``fem/``,
-``equations/``, ``solvers/``, ``timeintegration/``, ``kernels/``) so each
-ported function sits at the same path as its JAX reference.  It imports
-``torch`` and never ``jax`` or ``thetis_tpu``.
+``equations/``, ``solvers/``, ``timeintegration/``, ``kernels/``,
+``model/``) so each ported function sits at the same path as its JAX
+reference.  It imports ``torch`` and never ``jax`` or ``thetis_tpu``.
 
 Conventions:
 
 * The device and dtype are chosen once, at the mesh's constructor
-  (``Mesh2d(..., device=, dtype=)``); every space, assembler, equation and
-  stepper built on that mesh keeps its tensors there.  There is no global
-  default-dtype or default-device switch.
+  (``Mesh2d(..., device=, dtype=)``); every space, assembler, equation,
+  stepper and solver built on that mesh keeps its tensors there.  There
+  is no global default-dtype or default-device switch.
 * Host-side mesh preprocessing stays in float64 numpy, as in the reference.
 * Solution states are plain dicts with the reference's keys and shapes,
   ``{"uv": (nc, 3, 2), "elev": (nc, 3)}``.
@@ -18,6 +18,53 @@ Conventions:
 * Every hand-written CUDA kernel lives in ``csrc/`` and is reached through
   a wrapper in ``kernels/`` that runs the plain PyTorch version for CPU
   tensors and launches the kernel (or raises) for CUDA tensors.
+
+``from thetis_tpu_torch import *`` gives the part of the thetis-style user
+namespace that the 2D model needs (``solver2d.FlowSolver2d``,
+``RectangleMesh``, ``FunctionSpace``, ``Function``, ``SpatialCoordinate``,
+``Constant``, ``exp``), so ``demos/demo_2d_channel.py`` runs with its one
+import line changed.  The facade's mesh generators put the mesh on the
+CUDA device when there is one (else the CPU), in float64, unless
+``device=``/``dtype=`` say otherwise.  The rest of the reference's
+``api.py`` waits for ROADMAP A10.
 """
+import torch
+
+from .fem.functionspace import Function, FunctionSpace, SpatialCoordinate
+from .mesh import generation as _generation
+from .model import flowsolver2d as solver2d
+from .model.flowsolver2d import FlowSolver2d
+from .utils.constant import Constant
+from .utils.log import print_output
 
 __version__ = "0.1.0"
+
+__all__ = ["solver2d", "FlowSolver2d", "RectangleMesh",
+           "PeriodicRectangleMesh", "FunctionSpace", "Function",
+           "SpatialCoordinate", "Constant", "print_output", "exp", "pi"]
+
+exp = torch.exp
+pi = float(torch.pi)
+
+
+def _device(device):
+    if device is not None:
+        return device
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
+                  name="rectangle", *, device=None, dtype=torch.float64):
+    """:func:`thetis_tpu_torch.mesh.generation.RectangleMesh` with the
+    facade's default device and dtype."""
+    return _generation.RectangleMesh(nx, ny, lx, ly, originX, originY, name,
+                                     device=_device(device), dtype=dtype)
+
+
+def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
+                          name="periodic_rectangle", *, device=None,
+                          dtype=torch.float64):
+    """:func:`thetis_tpu_torch.mesh.generation.PeriodicRectangleMesh` with
+    the facade's default device and dtype."""
+    return _generation.PeriodicRectangleMesh(
+        nx, ny, lx, ly, direction, name, device=_device(device), dtype=dtype)

@@ -216,3 +216,17 @@ class DGAssembler:
         inverse)."""
         return torch.einsum("de,ce...->cd...", self.Mref_inv, r) / _wexpand(
             self.mesh.detJ[:, None], r, 2)
+
+    # ======================= integrals =================================
+    def integrate_cellq(self, fq):
+        """Integrate quad-point values (nc, nq[, k]) over the domain."""
+        return torch.einsum("cq...,cq->...", fq, self.wdetJ)
+
+    def integrate(self, u):
+        return self.integrate_cellq(self.cell_values(u))
+
+    def norm_l2(self, u):
+        """L2 norm of a scalar (nc, nd) or vector (nc, nd, 2) field."""
+        v = self.cell_values(u)
+        v2 = (v ** 2).sum(-1) if v.dim() == 3 else v ** 2
+        return torch.sqrt(torch.einsum("cq,cq->", v2, self.wdetJ))

@@ -1,32 +1,40 @@
-"""Discontinuous function spaces and Function containers.
+"""Function spaces and Function containers.
 
-Port of the DG part of ``thetis_tpu/fem/functionspace.py``.  DG dofs live
-in dense per-cell tensors ``(nc, ndofs)`` (scalars) or ``(nc, ndofs, dim)``
-(vectors) on the mesh's device, in the mesh's dtype.  CG spaces are not
-ported yet.
+Port of ``thetis_tpu/fem/functionspace.py``.  DG dofs live in dense
+per-cell tensors ``(nc, ndofs)`` (scalars) or ``(nc, ndofs, dim)``
+(vectors); CG P1 dofs live in per-vertex tensors ``(nv[, dim])`` with the
+cell->vertex map as the cell node map.  Every tensor is on the mesh's
+device, in the mesh's dtype.  CG P2 (the ``dg-cg`` family's elevation)
+waits for ROADMAP A8.
 """
 import numpy as np
 import torch
 
 from .reference_element import ELEMENTS
 
-__all__ = ["FunctionSpace", "Function"]
+__all__ = ["FunctionSpace", "Function", "SpatialCoordinate"]
 
 
 class FunctionSpace:
-    """Scalar or vector DG function space on a :class:`Mesh2d`.
+    """Scalar or vector function space on a :class:`Mesh2d`.
 
     :arg mesh: Mesh2d (its ``device``/``dtype`` are the space's)
-    :arg family: 'DG'
-    :arg degree: polynomial degree
+    :arg family: 'DG' or 'CG'
+    :arg degree: polynomial degree (CG: 1 only)
     :arg dim: value dimension (1 = scalar, 2 = vector)
     """
 
     def __init__(self, mesh, family, degree, dim=1, quad_degree=None):
-        family = {"Discontinuous Lagrange": "DG"}.get(family, family)
-        if family != "DG":
+        family = {"Discontinuous Lagrange": "DG", "Lagrange": "CG",
+                  "P": "CG"}.get(family, family)
+        if family == "CG" and degree == 0:
+            raise ValueError("CG0 does not exist")
+        if family == "CG" and degree != 1:
             raise NotImplementedError(
-                f"only DG spaces are ported so far, got {family!r}")
+                f"CG{degree} is not ported to thetis_tpu_torch yet "
+                "(ROADMAP A8: the dg-cg family)")
+        if family not in ("DG", "CG"):
+            raise ValueError(f"unknown function space family {family!r}")
         self.mesh = mesh
         self.family = family
         self.degree = degree
@@ -41,6 +49,13 @@ class FunctionSpace:
             k: torch.as_tensor(v, dtype=mesh.dtype, device=mesh.device)
             for k, v in self._tab_np.items()
         }
+        self.is_dg = family == "DG"
+        if self.is_dg:
+            self.node_count = mesh.nc * self.ndofs
+            self.cell_node_map_np = None  # implicit: (c, d) -> c*ndofs + d
+        else:
+            self.node_count = mesh.nv
+            self.cell_node_map_np = mesh.cells_np
 
     # -- tabulations on device -----------------------------------------
     def tab(self, name):
@@ -53,26 +68,54 @@ class FunctionSpace:
     phi_f = property(lambda s: s.tab("phi_f"))      # (6, nqf, nd)
     dphi_f = property(lambda s: s.tab("dphi_f"))    # (6, nqf, nd, 2)
 
+    @property
+    def cell_node_map(self):
+        """(nc, nd) int64 cell -> CG node map on the mesh's device."""
+        return self.mesh.cells
+
     # -- dof layout ------------------------------------------------------
     def dof_shape(self):
-        shape = (self.mesh.nc, self.ndofs)
+        shape = ((self.mesh.nc, self.ndofs) if self.is_dg
+                 else (self.node_count,))
         return shape + (self.dim,) if self.dim > 1 else shape
 
     def zero_dofs(self):
         return torch.zeros(self.dof_shape(), dtype=self.mesh.dtype,
                            device=self.mesh.device)
 
+    def cell_dofs(self, u):
+        """Per-cell dof values (nc, nd[, dim]) for any space."""
+        if self.is_dg:
+            return u
+        return u[self.cell_node_map]
+
     def dof_coords(self):
-        """Physical coordinates of dofs (nc, nd, 2), as a tensor.  Edge
-        vectors are period-unwrapped so seam cells of periodic meshes
-        place their nodes at the true physical points."""
+        """Physical coordinates of dofs, shaped like a scalar dof array
+        plus a trailing coordinate axis: (nc, nd, 2) for DG, (nv, 2) for
+        CG1.  DG edge vectors are period-unwrapped so seam cells of
+        periodic meshes place their nodes at the true physical points."""
         mesh = self.mesh
+        if not self.is_dg:
+            return torch.as_tensor(mesh.coords_np, dtype=mesh.dtype,
+                                   device=mesh.device)
         ref = self.element.dof_coords  # (nd, 2)
         p = mesh.coords_np[mesh.cells_np]  # (nc,3,2)
         J = np.stack([mesh._wrap_dx(p[:, 1] - p[:, 0]),
                       mesh._wrap_dx(p[:, 2] - p[:, 0])], axis=2)
         x = p[:, 0][:, None, :] + np.einsum("cij,dj->cdi", J, ref)
         return torch.as_tensor(x, dtype=mesh.dtype, device=mesh.device)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, FunctionSpace)
+            and self.mesh is other.mesh
+            and self.family == other.family
+            and self.degree == other.degree
+            and self.dim == other.dim
+        )
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.family, self.degree, self.dim))
 
     def __repr__(self):
         kind = f"Vector({self.dim})" if self.dim > 1 else ""
@@ -109,3 +152,15 @@ class Function:
 
     def __repr__(self):
         return f"Function({self.name}, {self.function_space})"
+
+
+def SpatialCoordinate(mesh_or_space):
+    """Dof-coordinate tensors ``(x, y)``: the vertex coordinates (the P1
+    CG layout, the common use in demo scripts) for a mesh, the space's dof
+    coordinates for a :class:`FunctionSpace`."""
+    if isinstance(mesh_or_space, FunctionSpace):
+        xy = mesh_or_space.dof_coords()
+    else:
+        m = mesh_or_space
+        xy = torch.as_tensor(m.coords_np, dtype=m.dtype, device=m.device)
+    return xy[..., 0], xy[..., 1]

@@ -4,13 +4,15 @@ Both packages are fed from the same numpy data: the reference through
 ``jnp.asarray``, the port through these helpers; results come back as
 numpy for comparison.
 """
+import datetime
+
 import numpy as np
 import torch
 
 __all__ = ["state_from_numpy", "state_to_numpy", "fields_from_numpy",
            "fields_to_numpy", "bathymetry_from_numpy", "bathymetry_to_numpy",
            "state3d_from_numpy", "state3d_to_numpy",
-           "flowsolver3d_from_numpy"]
+           "flowsolver3d_from_numpy", "flowsolver2d_from_reference"]
 
 _STATE_KEYS = ("elev", "uv")
 #: the 3D step's state dict (``FlowSolver._get_state``)
@@ -74,6 +76,80 @@ def state3d_from_numpy(d, device, dtype):
 
 def state3d_to_numpy(s):
     return {k: _to_numpy(v) for k, v in s.items()}
+
+
+_NEWTON_FIELDS = ("snes_rtol", "snes_atol", "snes_max_it", "ksp_rtol",
+                  "ksp_max_it", "gmres_restart", "line_search", "dense",
+                  "monitor_convergence")
+#: option objects of the reference that the port builds itself
+_SUB_OPTIONS = ("swe_timestepper_options", "tracer_timestepper_options",
+                "sediment_timestepper_options", "exner_timestepper_options",
+                "sediment_model_options", "nh_model_options")
+
+
+def _option_value(v, device, dtype):
+    """A reference option value in the port's terms: arrays (numpy or the
+    reference's device arrays, read through ``np.asarray``) and Function
+    data become tensors, Constants and NewtonParameters the port's own
+    classes; plain Python values pass through."""
+    from .solvers.newton import NewtonParameters
+    from .utils.constant import Constant
+
+    if v is None or isinstance(v, (bool, int, float, str, dict, list,
+                                   datetime.datetime)):
+        return v
+    kind = type(v).__name__
+    if kind == "Constant":
+        return Constant(np.asarray(v))
+    if kind == "NewtonParameters":
+        return NewtonParameters(**{k: getattr(v, k) for k in _NEWTON_FIELDS})
+    if kind == "Function":
+        return _to_tensor(np.asarray(v.data), device, dtype)
+    if hasattr(v, "__array__"):
+        return _to_tensor(np.asarray(v), device, dtype)
+    raise TypeError(f"cannot carry option value of type {kind} to the port")
+
+
+def flowsolver2d_from_reference(ref, mesh2d):
+    """The port's :class:`~thetis_tpu_torch.model.flowsolver2d.FlowSolver2d`
+    on ``mesh2d`` (its device and dtype), set up from a reference
+    ``FlowSolver2d`` through numpy: the bathymetry, every option value
+    (the SWE stepper type first, then its stepper options), the
+    shallow-water boundary data and, when the reference is initialized,
+    its ``uv_2d``/``elev_2d`` state and time counters (the port solver is
+    then initialized too).  The reference is read, never changed, and
+    nothing of JAX is imported: array values go through ``np.asarray``."""
+    from .model.flowsolver2d import FlowSolver2d
+
+    dev, dt = mesh2d.device, mesh2d.dtype
+
+    def conv(v):
+        return _option_value(v, dev, dt)
+
+    s = FlowSolver2d(mesh2d, _to_tensor(np.asarray(ref.bathymetry_dof),
+                                        dev, dt))
+    ro, po = ref.options, s.options
+    po.swe_timestepper_type = ro.swe_timestepper_type
+    for k, v in vars(ro).items():
+        if k.startswith("_") or k in _SUB_OPTIONS or k == "swe_timestepper_type":
+            continue
+        setattr(po, k, conv(v))
+    for k, v in vars(ro.swe_timestepper_options).items():
+        if not k.startswith("_"):
+            setattr(po.swe_timestepper_options, k, conv(v))
+    for marker, spec in ref.bnd_functions["shallow_water"].items():
+        s.bnd_functions["shallow_water"][marker] = {
+            k: conv(v) for k, v in spec.items()}
+    if getattr(ref, "_initialized", False):
+        s.initialize()
+        s.fields.uv_2d.data = _to_tensor(np.asarray(ref.fields.uv_2d.data),
+                                         dev, dt)
+        s.fields.elev_2d.data = _to_tensor(
+            np.asarray(ref.fields.elev_2d.data), dev, dt)
+        s.simulation_time = float(ref.simulation_time)
+        s.iteration = int(ref.iteration)
+        s.i_export = int(ref.i_export)
+    return s
 
 
 def flowsolver3d_from_numpy(mesh2d, bathymetry, n_layers, options,

@@ -1,25 +1,49 @@
-r"""Assembled 1-ring Krylov solve (port of the analytic-path parts of
-``thetis_tpu/solvers/assembled.py``).
+r"""Assembled 1-ring block operators, their Krylov solve and the
+assembled preconditioners (port of ``thetis_tpu/solvers/assembled.py``).
 
 The semi-implicit SWE stage systems are affine in the solution with
 exact 1-ring sparsity for P1DG: ``equations/swe_blocks.py`` assembles the
-per-step operator as component-major blocks ``(4, 9, 9, nc)`` and the
-whole FGMRES loop runs on ring matvecs and block-Jacobi applications (the
-two CUDA kernels of ``kernels/ringmv.py``), the analogue of
-PETSc's assembled-Jacobian KSP (the reference's 2D default,
-``options.py:44-48``).
+per-step operator analytically as component-major blocks
+``(4, 9, 9, nc)``, and the whole FGMRES loop runs on ring matvecs and
+block-Jacobi applications (the two CUDA kernels of ``kernels/ringmv.py``),
+the analogue of PETSc's assembled-Jacobian KSP (the reference's 2D
+default, ``options.py:44-48``).
+
+Ported here as well:
+
+* graph-colour probing (:func:`distance2_coloring`,
+  :func:`assemble_ring_blocks`, :func:`assemble_affine_operator`): the
+  exact 1-ring blocks of any affine, facet-coupled operator from
+  ``n_colors x 9`` tangent probes (``torch.func.jvp`` under
+  ``torch.func.vmap``), at set-up or when the analytic assembly does not
+  apply;
+* the two-level preconditioner (:func:`aggregate_cells`,
+  :class:`CoarseCorrection`, the V-cycle in :func:`ring_gmres`) and the
+  full-PC hook that :class:`~.fieldsplit.SchurFieldsplitPC` plugs into;
+* :class:`AssembledWavePC`, the setup-time wave-Jacobian preconditioner
+  of the matrix-free Newton CrankNicolson.
+
+Every 9x9 ring matvec and block-Jacobi apply goes through
+:func:`~thetis_tpu_torch.kernels.ringmv.ring_mv` /
+:func:`~thetis_tpu_torch.kernels.ringmv.block_diag_mv`, so on a CUDA
+mesh they are the hand-written kernels.
 
 Not ported: the shift stencil (the CUDA kernel gathers through the ring
-table directly, so it needs no per-mesh offset decomposition), colour
-probing, the coarse/Schur preconditioners and the custom VJPs.
+table directly, so it needs no per-mesh offset decomposition) and the
+custom VJPs / transposed operators (ROADMAP A9).
 """
 import numpy as np
 import torch
 
 from ..kernels.ringmv import block_diag_mv, ring_mv
 
-__all__ = ["cell_ring", "ring_tables", "batched_inv_small_T", "PackedState",
-           "ring_apply", "ring_apply_T", "ring_gmres"]
+__all__ = ["AssembledWavePC", "cell_ring", "ring_tables",
+           "distance2_coloring", "assemble_ring_blocks", "get_coloring",
+           "assemble_affine_operator", "batched_inv_small_T", "cell_to_T",
+           "PackedState", "ring_apply", "ring_apply_T", "ring_gmres",
+           "aggregate_cells", "CoarseCorrection"]
+
+_WAVE = frozenset(["ExternalPressureGradientTerm", "HUDivTerm"])
 
 
 def cell_ring(mesh):
@@ -44,11 +68,98 @@ def cell_ring(mesh):
 
 def ring_tables(mesh):
     """:func:`cell_ring` as device tensors for the ring matvec: ``ring``
-    int32 and ``valid`` bool on the mesh's device (converted once, at
-    setup)."""
-    ring, valid = cell_ring(mesh)
-    return (torch.as_tensor(ring, device=mesh.device),
-            torch.as_tensor(valid, device=mesh.device))
+    int32 and ``valid`` bool on the mesh's device (converted once per
+    mesh and cached on it)."""
+    cached = getattr(mesh, "_ring_tables", None)
+    if cached is None:
+        ring, valid = cell_ring(mesh)
+        cached = (torch.as_tensor(ring, device=mesh.device),
+                  torch.as_tensor(valid, device=mesh.device))
+        mesh._ring_tables = cached
+    return cached
+
+
+def distance2_coloring(ring, valid):
+    """Greedy proper colouring of the *square* of the dual graph: any two
+    cells at distance <= 2 receive different colours, so every closed
+    1-ring holds pairwise-distinct colours.  Max dual degree 3 =>
+    typically 5-6, at most ~10 colours.  A host loop over the cells in
+    index order (the reference's greedy order, so the colours are the
+    reference's); paid once per mesh (:func:`get_coloring`)."""
+    nc = ring.shape[0]
+    ring2 = ring[ring].reshape(nc, -1).tolist()  # 2-ring incl. duplicates
+    colors = [-1] * nc
+    for c in range(nc):
+        used = {colors[k] for k in ring2[c]}
+        col = 0
+        while col in used:
+            col += 1
+        colors[c] = col
+    return np.asarray(colors, dtype=np.int64)
+
+
+def get_coloring(mesh):
+    """Cached (ring, valid, colors) host tables for a mesh."""
+    cached = getattr(mesh, "_ring_coloring", None)
+    if cached is None:
+        ring, valid = cell_ring(mesh)
+        cached = (ring, valid, distance2_coloring(ring, valid))
+        mesh._ring_coloring = cached
+    return cached
+
+
+def assemble_ring_blocks(linop, in_dim, out_dim, ring, valid, colors,
+                         n_colors, nc, dtype, device, chunk_size=None):
+    """Assemble the cell-major 1-ring blocks of a linear operator with
+    nearest-neighbour coupling.
+
+    :arg linop: UNBATCHED linear map ``(nc, in_dim) -> (nc, out_dim)``
+    :returns: blocks ``(nc, 4, out_dim, in_dim)``, zeroed on invalid
+        (boundary-mirror) slots
+
+    For each (colour k, packed dof i) the probe ``t[c'] = e_i if
+    color[c'] == k else 0`` isolates exactly one ring member per cell, so
+    ``(W t)[c]`` is column i of the block ``W[c, n]`` for the member n of
+    colour k.  The ``n_colors * in_dim`` probes ride a leading vmapped
+    axis (``chunk_size`` bounds how many are evaluated at once)."""
+    P = n_colors * in_dim
+    onehot = (colors[:, None] == np.arange(n_colors)[None, :]).astype(
+        np.float64)  # (nc, K)
+    # probes[(k, i), c, j] = onehot[c, k] * eye[j, i]
+    probes = (onehot.T[:, None, :, None]
+              * np.eye(in_dim)[None, :, None, :]).reshape(P, nc, in_dim)
+    probes = torch.as_tensor(probes, dtype=dtype, device=device)
+    Y = torch.func.vmap(linop, chunk_size=chunk_size)(probes)  # (P, nc, o)
+    Y = Y.reshape(n_colors, in_dim, nc, out_dim).permute(2, 0, 3, 1)
+    cidx = torch.as_tensor(colors[ring], device=device)  # (nc, 4)
+    # blocks[c, s, o, j] = Y[c, color[ring[c, s]], o, j]
+    blocks = Y[torch.arange(nc, device=device)[:, None], cidx]
+    mask = torch.as_tensor(valid, dtype=dtype, device=device)
+    return blocks * mask[:, :, None, None]
+
+
+def assemble_affine_operator(F, x0, mesh, chunk_size=None):
+    """Assemble an affine 1-ring-local operator ``F(x) = A x - b`` on
+    packed cell dofs.
+
+    :arg F: function (nc, d) -> (nc, d), affine in its argument with
+        nearest-neighbour (facet) coupling only
+    :arg x0: (nc, d) point to linearize about (exact for affine F)
+    :returns: ``(blocks, f0)`` — cell-major ``blocks`` (nc, 4, d, d) such
+        that ``A x = ring_apply(blocks, ring, x)``, and ``f0 = F(0) =
+        -b``."""
+    ring, valid, colors = get_coloring(mesh)
+    nc, d = x0.shape
+    n_colors = int(colors.max()) + 1
+
+    def A(v):
+        return torch.func.jvp(F, (x0,), (v,))[1]
+
+    f0 = F(x0) - A(x0)  # affine: F(0) = F(x0) - A x0
+    blocks = assemble_ring_blocks(A, d, d, ring, valid, colors, n_colors,
+                                  nc, x0.dtype, x0.device,
+                                  chunk_size=chunk_size)
+    return blocks, f0
 
 
 def batched_inv_small_T(AT):
@@ -59,10 +170,17 @@ def batched_inv_small_T(AT):
     return torch.linalg.inv(AT.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
 
 
+def cell_to_T(blocks):
+    """Cell-major ring blocks ``(nc, 4, do, di)`` -> the component-major
+    ``(4, do, di, nc)`` layout the ring matvec kernel reads."""
+    return blocks.permute(1, 2, 3, 0).contiguous()
+
+
 def ring_apply(blocks, ring, x):
     """Cell-major blocks ``(nc, 4, do, di)`` applied to ``x`` (nc, di) ->
     (nc, do) by a plain gather (boundary-mirror slots carry zero
-    blocks)."""
+    blocks).  For the fieldsplit's non-9x9 sub-blocks and for tests; the
+    9x9 operators go through :func:`ring_apply_T`."""
     return torch.einsum("csoj,csj->co", blocks, x[ring.long()])
 
 
@@ -72,45 +190,158 @@ def ring_apply_T(blocks_T, x, ring, valid):
     return ring_mv(blocks_T, x.T.contiguous(), ring, valid).T
 
 
+def aggregate_cells(mesh, target_size=96):
+    """Geometric aggregation of cells into contiguous patches (the
+    coarse space of the two-level preconditioner): bin cell centroids
+    into a rectangular grid sized for ~``target_size`` cells per
+    aggregate.  Returns (agg_ids (nc,), n_agg).  Host numpy, as the
+    reference."""
+    mids = np.asarray(mesh.coords_np)[np.asarray(mesh.cells_np)].mean(axis=1)
+    nc = mids.shape[0]
+    n_agg_target = max(1, nc // int(target_size))
+    lo, hi = mids.min(0), mids.max(0)
+    ext = np.maximum(hi - lo, 1e-12)
+    aspect = ext[0] / ext[1]
+    nbx = max(1, int(round(np.sqrt(n_agg_target * aspect))))
+    nby = max(1, int(round(n_agg_target / nbx)))
+    ix = np.minimum((mids[:, 0] - lo[0]) / ext[0] * nbx, nbx - 1e-9).astype(int)
+    iy = np.minimum((mids[:, 1] - lo[1]) / ext[1] * nby, nby - 1e-9).astype(int)
+    raw = ix * nby + iy
+    # compress empty bins
+    uniq, agg = np.unique(raw, return_inverse=True)
+    return agg.astype(np.int32), len(uniq)
+
+
+class CoarseCorrection:
+    """Galerkin coarse correction for an assembled 1-ring operator.
+
+    The coarse space is piecewise-constant per aggregate: P injects
+    coarse dofs to cells, ``A_c = P^T A P`` is formed from the 1-ring
+    blocks on the host (float64) ONCE at setup and inverted densely; each
+    application is a segment-sum restriction (``index_add_``), one dense
+    matvec and a gather prolongation.
+
+    :arg blocks: cell-major blocks (nc, 4, d, d) on the solve's device
+    :arg ring: (nc, 4) closed 1-ring table (host numpy)
+    :arg fields: ``None`` for the reference's coarse space, one coarse
+        dof per (aggregate, packed dof component); or a (d,) int map from
+        packed component to field, for one coarse dof per (aggregate,
+        field): the constants of each field.  The reference's space also
+        holds, per P1 node, functions that jump at every facet; with them
+        the V-cycle stalls FGMRES on the rest-state SWE operator (ROADMAP
+        C), so ``FlowSolver2d`` builds the per-field space.
+    """
+
+    def __init__(self, blocks, ring, mesh, target_size=None, fields=None):
+        nc, _, d, _ = blocks.shape
+        if target_size is None:
+            # cap the coarse dimension at ~4096 (dense inverse 67 MB in
+            # f32) while the aggregate diameter grows with the mesh
+            target_size = max(48, int(np.ceil(nc * d / 4096.0)))
+        agg, n_agg = aggregate_cells(mesh, target_size)
+        self.n_agg = n_agg
+        self.d = d
+        b_np = blocks.detach().to("cpu", torch.float64).numpy()
+        ring_np = np.asarray(ring)
+        A_c = np.zeros((n_agg, d, n_agg, d))
+        # A_c[I, :, J, :] += blocks[c, s] for agg[c] = I, agg[ring[c,s]] = J
+        np.add.at(A_c, (agg[:, None], slice(None), agg[ring_np]), b_np)
+        self.F = None
+        if fields is not None:
+            fields = np.asarray(fields)
+            F = (fields[:, None] == np.arange(fields.max() + 1)).astype(
+                np.float64)                                  # (d, nf)
+            A_c = np.einsum("kf,IkJl,lg->IfJg", F, A_c, F, optimize=True)
+            self.F = torch.as_tensor(F, dtype=blocks.dtype,
+                                     device=blocks.device)
+        self.nd_c = A_c.shape[1]
+        A_c = A_c.reshape(n_agg * self.nd_c, n_agg * self.nd_c)
+        self.agg = torch.as_tensor(agg.astype(np.int64), device=blocks.device)
+        self.Ac_inv = torch.as_tensor(np.linalg.inv(A_c), dtype=blocks.dtype,
+                                      device=blocks.device)
+
+    def __call__(self, r):
+        """r (nc, d) -> coarse-corrected increment (nc, d)."""
+        r_c = r.new_zeros((self.n_agg, self.d)).index_add_(0, self.agg, r)
+        if self.F is not None:
+            r_c = r_c @ self.F
+        z_c = (self.Ac_inv @ r_c.reshape(-1)).reshape(self.n_agg, self.nd_c)
+        z = z_c[self.agg]
+        return z if self.F is None else z @ self.F.T
+
+
 def _ring_solve_impl(blocks_T, ring, valid, b, diag_inv_T, rtol, restart,
-                     max_cycles):
+                     max_cycles, coarse=None, stats=None):
     """FGMRES core on a component-major ring operator: ``b`` (nc, d) ->
     ``(x, rnorm, bnorm)`` with x (nc, d).  The Krylov vectors stay
-    component-major ``(d, nc)`` flattened."""
+    component-major ``(d, nc)`` flattened.
+
+    Preconditioner: block-Jacobi (inverted diagonal blocks); with a
+    ``coarse`` correction the multiplicative two-level V-cycle (smooth,
+    coarse-correct, smooth); a coarse object with ``is_full_pc`` (the
+    Schur fieldsplit) is applied as-is.  Coarse objects take and return
+    cell-major (nc, d) vectors."""
     from .newton import _fgmres_flat
 
     _, d, _, nc = blocks_T.shape
 
-    def mv(v):
-        return ring_mv(blocks_T, v.reshape(d, nc), ring, valid).reshape(-1)
+    def mvT(xT):
+        return ring_mv(blocks_T, xT.contiguous(), ring, valid)
 
-    def M(v):  # block-Jacobi: inverted diagonal (slot-0) blocks
-        return block_diag_mv(diag_inv_T, v.reshape(d, nc)).reshape(-1)
+    def bjac(rT):
+        return block_diag_mv(diag_inv_T, rT.contiguous())
+
+    def mv(v):
+        return mvT(v.reshape(d, nc)).reshape(-1)
+
+    if coarse is None:
+        def M(v):
+            return bjac(v.reshape(d, nc)).reshape(-1)
+    elif getattr(coarse, "is_full_pc", False):
+        def M(v):
+            return coarse(v.reshape(d, nc).T).T.reshape(-1)
+    else:
+        def M(v):
+            r = v.reshape(d, nc)
+            z = bjac(r)
+            z = z + coarse((r - mvT(z)).T).T
+            z = z + bjac(r - mvT(z))
+            return z.reshape(-1)
 
     x, rnorm, bnorm = _fgmres_flat(mv, b.T.reshape(-1), M, rtol, restart,
-                                   max_cycles)
+                                   max_cycles, stats)
     return x.reshape(d, nc).T, rnorm, bnorm
 
 
-def ring_gmres(blocks_T, ring, valid, b, x0, r0, rtol=1e-5, restart=24,
-               max_cycles=4):
+def ring_gmres(blocks_T, ring, valid, b, x0=None, r0=None, rtol=1e-5,
+               restart=24, max_cycles=4, coarse=None, stats=None):
     """Solve ``A x = b`` for a component-major assembled ring operator
     with restarted FGMRES, right-preconditioned by block-Jacobi (inverted
-    diagonal blocks), warm-started from ``x0``.
+    diagonal blocks), optionally wrapped in a two-level V-cycle with a
+    :class:`CoarseCorrection` or replaced by a full PC (``is_full_pc``),
+    warm-started from ``x0`` (zero when None).
 
     The residual system ``A dx = r0`` is solved, with ``r0 = b - A x0``
-    supplied by the caller (it is known in closed form there), the
+    (computed here when the caller does not know it in closed form), the
     convergence target still anchored to ``||b||``, and ``x = x0 + dx``.
     Like the reference, a solve whose residual grew past ``1e4 ||b||``
-    returns NaN (PETSc's divergence tolerance)."""
+    returns NaN (PETSc's divergence tolerance).  ``stats``, when given,
+    collects ``ksp_cycles`` and ``ksp_rel_residual``."""
     tiny = torch.finfo(b.dtype).tiny
     diag_inv_T = batched_inv_small_T(blocks_T[0])
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if r0 is None:
+        r0 = b - ring_apply_T(blocks_T, x0, ring, valid)
     bnorm = float(torch.linalg.vector_norm(b))
     r0norm = float(torch.linalg.vector_norm(r0))
     dx, rnorm, _ = _ring_solve_impl(
         blocks_T, ring, valid, r0, diag_inv_T,
-        float(rtol) * bnorm / max(r0norm, tiny), restart, max_cycles)
+        float(rtol) * bnorm / max(r0norm, tiny), restart, max_cycles,
+        coarse=coarse, stats=stats)
     x = x0 + dx
+    if stats is not None:
+        stats["ksp_rel_residual"] = rnorm / max(bnorm, tiny)
     if rnorm > 1e4 * max(bnorm, tiny):
         x = torch.full_like(x, float("nan"))
     return x
@@ -140,3 +371,104 @@ class PackedState:
             out[k] = x[:, off:off + size].reshape((self.nc,) + s)
             off += size
         return out
+
+
+class AssembledWavePC:
+    r"""Approximate inverse of the theta-weighted implicit SWE system,
+    applied through assembled 1-ring blocks of the wave Jacobian
+
+        W = d/du [ M u - theta dt R_wave(u) ],   R_wave = EPG + HUDiv
+
+    linearized about ``lin_state`` (typically the rest state) and built
+    ONCE at setup by colour probing.  ``__call__`` runs a fixed number of
+    block-Jacobi right-preconditioned GMRES iterations on ``W x = r``
+    (:func:`~.newton.fixed_gmres`): per iteration one ring matvec and one
+    block-Jacobi apply (the two kernels), no host sync.
+
+    The blocks are stored component-major ``Wb (4, 9, 9, nc)`` and the
+    inverted diagonal blocks ``Wdiag_inv (9, 9, nc)``, in the packed dof
+    order ``[uv (6), elev (3)]`` of the reference; vectors inside the
+    solve are component-major ``(9, nc)``.
+
+    :arg eq: ShallowWaterEquations-like object (EPG/HUDiv term names,
+        ``mass_term``, the P1DG assembler)
+    :arg lin_state: solution dict to linearize about
+    :arg inner_iterations: GMRES iteration count of the W solve
+    """
+
+    def __init__(self, eq, dt, theta, lin_state, fields=None,
+                 bnd_values=None, inner_iterations=20):
+        self.eq = eq
+        self.coeff = float(theta) * float(dt)
+        self.n_inner = int(inner_iterations)
+        mesh = eq.mesh
+        if eq.asm.ndofs != 3:
+            raise NotImplementedError(
+                "assembled wave PC supports P1DG (3-dof) cells; use the "
+                "matrix-free WaveEquationSchurPC for other elements")
+        fields = fields or {}
+        if bnd_values is None:
+            # zero-valued boundary data with the equation's static BC-key
+            # structure (values only shift the affine part)
+            bnd_values = {m: {k: 0.0 for k in keys}
+                          for m, keys in getattr(eq, "bnd_keys", {}).items()}
+        ring_np, valid_np, colors = get_coloring(mesh)
+        n_colors = int(colors.max()) + 1
+        nc = ring_np.shape[0]
+        self.nc = nc
+        self.ring, self.valid = ring_tables(mesh)
+        x0 = self._pack_cell(lin_state)
+        c = self.coeff
+
+        def wave_system(x):
+            """F_wave(u) = M u - theta dt R_wave(u); solution_old fixed at
+            the linearization state (the semi-implicit 'ksponly'
+            linearization, ref ``timeintegrator.py:186-211``)."""
+            st = {"uv": x[:, :6].reshape(nc, 3, 2), "elev": x[:, 6:]}
+            r = eq.residual(_WAVE, st, lin_state, fields, fields, bnd_values)
+            m = eq.mass_term(st)
+            return self._pack_cell({"uv": m["uv"] - c * r["uv"],
+                                    "elev": m["elev"] - c * r["elev"]})
+
+        def W(v):
+            return torch.func.jvp(wave_system, (x0,), (v,))[1]
+
+        blocks = assemble_ring_blocks(W, 9, 9, ring_np, valid_np, colors,
+                                      n_colors, nc, x0.dtype, x0.device,
+                                      chunk_size=9)
+        self.Wb = cell_to_T(blocks)
+        del blocks
+        # block-Jacobi: the slot-0 blocks inverted in float64
+        self.Wdiag_inv = torch.linalg.inv(
+            self.Wb[0].permute(2, 0, 1).to(torch.float64)).to(
+            x0.dtype).permute(1, 2, 0).contiguous()
+
+    @staticmethod
+    def _pack_cell(st):
+        nc = st["elev"].shape[0]
+        return torch.cat([st["uv"].reshape(nc, 6), st["elev"]], dim=-1)
+
+    # -- operator applications (component-major (9, nc)) -----------------
+    def _W(self, xT):
+        return ring_mv(self.Wb, xT.contiguous(), self.ring, self.valid)
+
+    def _bjac(self, rT):
+        return block_diag_mv(self.Wdiag_inv, rT.contiguous())
+
+    def _solve(self, bT):
+        """Fixed-iteration non-restarted GMRES on ``W x = b``, right-
+        preconditioned with block-Jacobi (cf. PETSc gmres+bjacobi)."""
+        from .newton import fixed_gmres
+
+        nc = self.nc
+        x = fixed_gmres(lambda v: self._W(v.reshape(9, nc)).reshape(-1),
+                        lambda v: self._bjac(v.reshape(9, nc)).reshape(-1),
+                        bT.reshape(-1), self.n_inner)
+        return x.reshape(9, nc)
+
+    # -- the preconditioner ----------------------------------------------
+    def __call__(self, r):
+        nc = self.nc
+        bT = torch.cat([r["uv"].reshape(nc, 6).T, r["elev"].T]).contiguous()
+        x = self._solve(bT)
+        return {"uv": x[:6].T.reshape(nc, 3, 2), "elev": x[6:].T}

@@ -1,35 +1,141 @@
-"""Krylov core and solver parameters (port of the parts of
-``thetis_tpu/solvers/newton.py`` that the assembled semi-implicit path
-runs: :class:`NewtonParameters` and the restarted FGMRES core).
+"""Matrix-free Newton-Krylov solver and the FGMRES core (port of
+``thetis_tpu/solvers/newton.py``).
 
-The reference runs FGMRES inside ``lax.while_loop``/``fori_loop``; here
-the loops are eager Python.  The Arnoldi loop keeps exactly ``restart``
-iterations with a breakdown guard, so both packages walk the same Krylov
-path wherever the reference's guard does not fire spuriously (see
-``_fgmres_flat``), and each restart cycle costs one host sync (the
-small least-squares problem and the convergence test run on the host).
-The matrix-free Newton solve and its adjoint are not ported yet.
+Jacobian-vector products come from ``torch.func.jvp`` of the residual
+(one forward-mode pass per matvec; the reference linearizes once with
+``jax.linearize``) and linear solves from the restarted FGMRES below.
+The reference's ``lax.while_loop``s are host loops here: each Newton
+iteration and each restart cycle costs one host sync (the residual norm
+and the small least-squares problem are read on the host).  The Arnoldi
+loop keeps exactly ``restart`` iterations with a breakdown guard, so
+both packages walk the same Krylov path wherever the reference's guard
+does not fire spuriously (see :func:`_fgmres_flat`).
+
+Not ported: the implicit-function-theorem ``custom_vjp`` of
+``newton_solve`` (ROADMAP A9); the port's solve is not differentiable.
 """
 import math
 
 import torch
 
-__all__ = ["NewtonParameters"]
+__all__ = ["newton_solve", "NewtonParameters", "linear_solve"]
 
 
 class NewtonParameters:
-    """Krylov tolerances (cf. reference ``options.py`` solver_parameters
-    dicts).  Only the KSP fields are ported: the one solve the port runs
-    is linear (semi-implicit), so the reference's SNES fields have no
-    reader yet."""
+    """SNES/KSP tolerances (cf. reference ``options.py`` solver_parameters
+    dicts), with the reference's fields and defaults."""
 
-    def __init__(self, ksp_rtol=1e-7, ksp_max_it=48, gmres_restart=16):
+    def __init__(self, snes_rtol=1e-8, snes_atol=1e-10, snes_max_it=8,
+                 ksp_rtol=1e-7, ksp_max_it=48, gmres_restart=16,
+                 line_search=False, dense=False, monitor_convergence=False):
+        self.snes_rtol = snes_rtol
+        self.snes_atol = snes_atol
+        self.snes_max_it = snes_max_it
         self.ksp_rtol = ksp_rtol
         self.ksp_max_it = ksp_max_it
         self.gmres_restart = gmres_restart
+        self.line_search = line_search
+        #: materialize the Jacobian and LU-solve (PETSc 'preonly'+'lu'
+        #: analogue; for small/steady problems where Krylov stalls)
+        self.dense = dense
+        #: PETSc error_on_nonconvergence analogue: report the final Krylov
+        #: residual after every solve (the NaN divergence guard is always
+        #: on)
+        self.monitor_convergence = monitor_convergence
 
 
-def _fgmres_flat(mv, b, M, rtol, restart, max_cycles):
+# -- dict-of-tensor helpers (the reference's pytrees) ---------------------
+def _ravel(tree):
+    """Flatten a dict of tensors in sorted key order (the order of
+    ``jax.flatten_util.ravel_pytree``): ``(flat, unravel)``."""
+    keys = sorted(tree)
+    shapes = [tree[k].shape for k in keys]
+    sizes = [tree[k].numel() for k in keys]
+    flat = torch.cat([tree[k].reshape(-1) for k in keys])
+
+    def unravel(v):
+        out, off = {}, 0
+        for k, s, n in zip(keys, shapes, sizes):
+            out[k] = v[off:off + n].reshape(s)
+            off += n
+        return out
+
+    return flat, unravel
+
+
+def _norm(tree):
+    return torch.sqrt(sum((v * v).sum() for v in tree.values()))
+
+
+def _axpy(a, x, y):
+    return {k: a * x[k] + y[k] for k in y}
+
+
+def _neg(tree):
+    return {k: -v for k, v in tree.items()}
+
+
+def _lstsq_pinv(H, beta):
+    """Minimum-norm solution of ``min ||beta e1 - H y||`` for the small
+    (m+1, m) Hessenberg matrix, in float64 through the pseudo-inverse
+    (SVD): a rank-deficient H from Arnoldi breakdown yields the
+    minimum-norm y, as the reference's SVD ``lstsq`` does
+    (``torch.linalg.lstsq`` on CUDA offers only ``gels``, which assumes
+    full rank).  Runs on H's device; returns float64 ``(y, e1)``."""
+    Hd = H.to(torch.float64)
+    e1 = torch.zeros(H.shape[0], dtype=torch.float64, device=H.device)
+    e1[0] = beta
+    return torch.linalg.pinv(Hd) @ e1, e1
+
+
+def _arnoldi_step(V, j, w, brk, tiny):
+    """Gram-Schmidt of ``w = A M v_j`` against all rows of ``V`` (rows
+    > j are still zero) and the next basis vector.  Returns ``(h,
+    hj1)`` and writes ``V[j + 1]``.
+
+    Breakdown (Krylov space exhausted: w lay in the basis up to
+    roundoff) keeps a zero basis row instead of dividing by ~0; the least
+    squares ignores it.  The test is relative to ``||A M v_j||``
+    (scale-free).  The reference tests ``hj1 > eps * beta`` (beta the
+    right-hand side's norm), which mixes residual and operator units: in
+    f32, when beta is large, it fires on every step and the solve
+    collapses to one Arnoldi step (ROADMAP C)."""
+    wnorm = torch.linalg.vector_norm(w)
+    h = V @ w                                     # (m+1,)
+    w = w - h @ V
+    hj1 = torch.linalg.vector_norm(w)
+    V[j + 1] = torch.where(hj1 > brk * wnorm,
+                           w / torch.clamp_min(hj1, tiny),
+                           torch.zeros_like(w))
+    return h, hj1
+
+
+def fixed_gmres(A, M, b, m):
+    """``m`` Arnoldi iterations of non-restarted, right-preconditioned
+    GMRES on ``A x = b`` from ``x = 0`` (flat vectors), with no
+    convergence test: the inner solve of the assembled preconditioners
+    (``AssembledWavePC._solve``, ``SchurFieldsplitPC._ssolve``).  The
+    small least squares stays on the device (f64 pseudo-inverse), so an
+    application needs no host sync."""
+    n = b.shape[0]
+    fi = torch.finfo(b.dtype)
+    tiny, brk = fi.tiny, fi.eps
+    beta = torch.linalg.vector_norm(b)
+    V = b.new_zeros((m + 1, n))
+    V[0] = b / torch.clamp_min(beta, tiny)
+    Z = b.new_zeros((m, n))
+    H = b.new_zeros((m + 1, m))
+    for j in range(m):
+        z = M(V[j])
+        h, hj1 = _arnoldi_step(V, j, A(z), brk, tiny)
+        H[:, j] = h
+        H[j + 1, j] = hj1
+        Z[j] = z
+    y, _ = _lstsq_pinv(H, beta)
+    return y.to(b.dtype) @ Z
+
+
+def _fgmres_flat(mv, b, M, rtol, restart, max_cycles, stats=None):
     """Restarted *flexible* GMRES (FGMRES, right-preconditioned) on flat
     vectors: classic Arnoldi + small dense least-squares per cycle
     (Saad 1993; PETSc ``-ksp_type fgmres``).
@@ -38,14 +144,14 @@ def _fgmres_flat(mv, b, M, rtol, restart, max_cycles):
     :arg b: right-hand side (n,)
     :arg M: preconditioner, flat -> flat (stored per iteration: Z_j)
     :arg rtol: relative tolerance on the true residual, as a float
+    :arg stats: optional dict; ``ksp_cycles`` is increased by the
+        number of restart cycles run
     :returns: ``(x, rnorm, bnorm)`` with the projected residual norm
         ``rnorm`` and ``bnorm = ||b||`` as Python floats
 
-    The small (m+1, m) least squares runs on the host in float64 through
-    the pseudo-inverse (SVD): a rank-deficient H from Arnoldi breakdown
-    yields the minimum-norm y, as the reference's SVD ``lstsq`` does.
-    (``torch.linalg.lstsq`` on CUDA offers only ``gels``, which assumes
-    full rank.)"""
+    The small (m+1, m) least squares runs on the host in float64 (see
+    :func:`_lstsq_pinv`); its result decides the loop, so each cycle
+    costs one host sync."""
     n = b.shape[0]
     m = int(restart)
     fi = torch.finfo(b.dtype)
@@ -58,40 +164,137 @@ def _fgmres_flat(mv, b, M, rtol, restart, max_cycles):
     while it < max_cycles and rnorm > rtol * bnorm:
         r = b - mv(x)
         beta = torch.linalg.vector_norm(r)
-        beta_floor = torch.clamp_min(beta, tiny)
         V = b.new_zeros((m + 1, n))
-        V[0] = r / beta_floor
+        V[0] = r / torch.clamp_min(beta, tiny)
         Z = b.new_zeros((m, n))
         H = b.new_zeros((m + 1, m))
         for j in range(m):
             z = M(V[j])
-            w = mv(z)
-            wnorm = torch.linalg.vector_norm(w)
-            # Gram-Schmidt against all rows: rows > j are still zero
-            h = V @ w                                     # (m+1,)
-            w = w - h @ V
-            hj1 = torch.linalg.vector_norm(w)
-            # breakdown (Krylov space exhausted: w lay in the basis up to
-            # roundoff): keep a zero basis row instead of dividing by ~0;
-            # the least squares ignores it.  The test is relative to |A z|
-            # (scale-free); the reference's eps * beta mixes residual and
-            # operator units and fires spuriously in f32 when beta is large
-            v_next = torch.where(hj1 > brk * wnorm,
-                                 w / torch.clamp_min(hj1, tiny),
-                                 torch.zeros_like(w))
+            h, hj1 = _arnoldi_step(V, j, mv(z), brk, tiny)
             H[:, j] = h
             H[j + 1, j] = hj1
-            V[j + 1] = v_next
             Z[j] = z
         host = torch.cat([H.reshape(-1), beta.reshape(1)]).to(
             "cpu", torch.float64)
         Hh = host[:-1].reshape(m + 1, m)
-        e1 = torch.zeros(m + 1, dtype=torch.float64)
-        e1[0] = host[-1]
-        y = torch.linalg.pinv(Hh) @ e1
+        y, e1 = _lstsq_pinv(Hh, host[-1])
         x = x + y.to(b.dtype).to(b.device) @ Z
         # projected residual estimate ||beta e1 - H y|| == ||b - A x|| in
         # exact arithmetic; the next cycle restarts from the true residual
         rnorm = float(torch.linalg.vector_norm(e1 - Hh @ y))
         it += 1
+    if stats is not None:
+        stats["ksp_cycles"] = stats.get("ksp_cycles", 0) + it
     return x, rnorm, bnorm
+
+
+def _linsolve(matvec, b, precond, params, stats=None):
+    """Right-preconditioned FGMRES solve of ``matvec(x) = b`` on dicts of
+    tensors (or the dense LU solve with ``params.dense``).  ``stats``,
+    when given, collects ``ksp_cycles`` (summed) and the last solve's
+    ``ksp_rel_residual``."""
+    b_flat, unravel = _ravel(b)
+
+    def mv(v):
+        return _ravel(matvec(unravel(v)))[0]
+
+    if getattr(params, "dense", False):
+        n = b_flat.shape[0]
+        eye = torch.eye(n, dtype=b_flat.dtype, device=b_flat.device)
+        A = torch.func.vmap(mv, in_dims=1, out_dims=1)(eye)
+        return unravel(torch.linalg.solve(A, b_flat))
+
+    if precond is not None:
+        def M(v):
+            return _ravel(precond(unravel(v)))[0]
+    else:
+        def M(v):
+            return v
+
+    x_flat, rnorm, bnorm = _fgmres_flat(
+        mv, b_flat, M, params.ksp_rtol, params.gmres_restart,
+        max(1, params.ksp_max_it // params.gmres_restart), stats)
+    bsafe = max(bnorm, torch.finfo(b_flat.dtype).tiny)
+    if stats is not None:
+        stats["ksp_rel_residual"] = rnorm / bsafe
+    # Krylov divergence guard (PETSc raises on KSP_DIVERGED_DTOL when the
+    # residual grows by divtol=1e4; as the reference, poison the solution
+    # with NaN instead).  Stagnation at roundoff is NOT divergence.
+    diverged = rnorm > 1e4 * bsafe
+    if getattr(params, "monitor_convergence", False):
+        from ..utils.log import print_output
+
+        print_output(f"KSP final rel. residual {rnorm / bsafe} "
+                     f"(diverged={diverged})")
+    if diverged:
+        x_flat = torch.full_like(x_flat, float("nan"))
+    return unravel(x_flat)
+
+
+def _tangent_map(f, x):
+    """The Jacobian of ``f`` at ``x`` as a linear map: one
+    ``torch.func.jvp`` per application."""
+    def jvp_fn(v):
+        v = {k: v[k] for k in x}  # tangents in the primal's key order
+        return torch.func.jvp(f, (x,), (v,))[1]
+    return jvp_fn
+
+
+def _newton_iterate(f, u0, precond, params, stats):
+    if params.snes_max_it == 1:
+        # semi-implicit / Picard 'ksponly' path: single linear solve
+        # (ref timeintegrator.py:186-211)
+        du = _linsolve(_tangent_map(f, u0), _neg(f(u0)), precond, params,
+                       stats)
+        stats["newton_iterations"] = 1
+        return _axpy(1.0, du, u0)
+
+    x = u0
+    fx = f(u0)
+    r0 = float(_norm(fx))
+    tol = max(params.snes_rtol * r0, params.snes_atol)
+    rnorm = r0
+    i = 0
+    while i < params.snes_max_it and rnorm > tol:
+        du = _linsolve(_tangent_map(f, x), _neg(fx), precond, params, stats)
+        x_new = _axpy(1.0, du, x)
+        fx_new = f(x_new)
+        rn_new = float(_norm(fx_new))
+        if params.line_search:
+            # backtracking: halve the step while the residual norm does
+            # not decrease (PETSc 'newtonls' analogue)
+            alpha = 1.0
+            while alpha > 1.0 / 64.0 and rn_new >= rnorm:
+                alpha = 0.5 * alpha
+                x_new = _axpy(alpha, du, x)
+                fx_new = f(x_new)
+                rn_new = float(_norm(fx_new))
+        x, fx, rnorm = x_new, fx_new, rn_new
+        i += 1
+    stats["newton_iterations"] = i
+    stats["snes_rel_residual"] = rnorm / max(r0, torch.finfo(
+        fx[sorted(fx)[0]].dtype).tiny)
+    return x
+
+
+def newton_solve(residual_fn, u0, precond=None, params=None, stats=None):
+    """Solve ``residual_fn(u) = 0`` by Newton-GMRES.
+
+    :arg residual_fn: dict of tensors -> dict of tensors (same keys)
+    :arg precond: linear operator approximating J^-1 (e.g. inverse mass)
+    :arg stats: optional dict, filled with ``newton_iterations``,
+        ``ksp_cycles`` (summed over the Newton iterations),
+        ``ksp_rel_residual`` (the last linear solve's projected relative
+        residual) and, for a Newton loop, ``snes_rel_residual``
+    :returns: the solution dict
+    """
+    params = params or NewtonParameters()
+    return _newton_iterate(residual_fn, u0, precond, params,
+                           {} if stats is None else stats)
+
+
+def linear_solve(matvec, b, precond=None, rtol=1e-7, restart=16, maxiter=3):
+    """Preconditioned GMRES convenience wrapper (PETSc KSP analogue)."""
+    p = NewtonParameters(ksp_rtol=rtol, ksp_max_it=restart * maxiter,
+                         gmres_restart=restart)
+    return _linsolve(matvec, b, precond, p)
