@@ -22,8 +22,16 @@ Phases, each printing its lines:
 
 1. device: the card, its power limit, the TF32 switches (both off);
 2. build: one nvcc per kernel source, all started together, with seconds;
-3. kernels against plain, f64 and f32, with times (CUDA events, median
-   of 50): ring_mv, tridiag, block_diag_mv at the workloads' shapes;
+3. kernels against plain, f64 and f32: ring_mv and block_diag_mv on the
+   ragged cases of ``thetis_tpu_torch/kernels/cases.py``, then every
+   kernel at the shapes the port runs it at (nc 4,608 and 102,400;
+   tridiag 27,648 and 13,824 columns of 13), each with one PyTorch call
+   computing the same function as its yardstick (cuSPARSE bsrmv,
+   ``torch.bmm``, ``torch.linalg.solve``); device time (profiler; at nc
+   102,400 with the L2 flushed before each call, as the solvers call the
+   kernels there, and the kernel's back-to-back time beside it),
+   CUDA-event time (median of 50), bytes, the bound and the kernel's
+   share of it;
 4. 2D slice: 1 warm-up + 10 timed f32 CN steps, launch counts, rates;
 5. 2D parity: one f64 step on the GPU (kernels) against the same step on
    the CPU (the port's plain path);
@@ -41,8 +49,10 @@ Phases, each printing its lines:
 11. 2D model parity, f64, 80x40: one step of each configuration of
     phases 8-10 on the GPU against the CPU plain path.
 
-Then one JSON line describing each kernel, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
+Then one JSON line describing each kernel (top-level numbers f32 at the
+3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result;
 without a CUDA device it exits 1 at once.  Run from the repository root:
 ``python3 chip_smoke.py``.
@@ -52,6 +62,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -63,6 +74,7 @@ from thetis_tpu_torch.equations.shallowwater_2d import (
 from thetis_tpu_torch.fem.assembly import DGAssembler
 from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
 from thetis_tpu_torch.kernels import ringmv, tridiag
+from thetis_tpu_torch.kernels.cases import RAGGED_NC, ragged_case
 from thetis_tpu_torch.mesh.generation import (PeriodicRectangleMesh,
                                               RectangleMesh)
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
@@ -79,6 +91,9 @@ L3, DEPTH3 = 1600e3, 1600.0             # bench.py:122-123
 STEPS3 = 20                             # bench.py:207
 RESTART3 = 6                            # flowsolver3d's barotropic solve
 H100_BW = 3.35e12  # bytes/s, H100 SXM data sheet
+# flop/s outside the tensor cores (H100 SXM data sheet); no kernel here
+# has the reuse that would feed a matrix unit
+H100_PEAK = {torch.float32: 67e12, torch.float64: 34e12}
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # one f64 step, GPU kernels vs CPU plain path: same Krylov path, sums in
 # other orders; the solve amplifies 1e-16 roundoff by its conditioning
@@ -169,13 +184,30 @@ def device_rows(fn):
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, flush=None):
     """Device time per call: the device kernels' time over ``reps`` calls,
     without the host's gaps between launches (which the CUDA-event time
-    of :func:`median_ms` includes)."""
+    of :func:`median_ms` includes).  With ``flush`` (an in-place
+    ``bitwise_not_`` of a buffer larger than the L2) run before every
+    call, the flush's own kernels are left out of the sum.  The profiler
+    can miss a few kernel records of a capture (2 of 20 of one kernel on
+    the card), so the sum is divided by the calls it saw of the costliest
+    kernel, not by ``reps``."""
     fn()
-    rows = device_rows(lambda: [fn() for _ in range(reps)])
-    return sum(r[0] for r in rows) / reps / 1e3
+    torch.cuda.synchronize()  # the warm-up call ends before the capture
+
+    def run():
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+
+    rows = [r for r in device_rows(run) if "bitwise_not" not in r[2]]
+    if not rows:
+        raise RuntimeError(f"the profiler saw no device kernel in {reps} "
+                           "calls")
+    per_call = max(1, round(rows[0][1] / reps))  # costliest kernel's count
+    return sum(r[0] for r in rows) / (rows[0][1] / per_call) / 1e3
 
 
 def sync_time(fn):
@@ -350,34 +382,141 @@ def phase_build():
     from thetis_tpu_torch.kernels.build import build_libraries
 
     t0 = time.perf_counter()
-    secs = build_libraries(KERNELS)
-    each = ", ".join(f"{k}.cu {v:.2f} s" for k, v in secs.items())
+    built = build_libraries(KERNELS)
+    each = ", ".join(f"{k}.cu {v[0]:.2f} s" for k, v in built.items())
     log(f"[build] {each}; all three in parallel "
         f"{time.perf_counter() - t0:.2f} s -> {BUILD_DIR} (nvcc -gencode "
         "arch=compute_90a,code=sm_90a)")
+    for k, (_, out) in built.items():
+        for line in out.splitlines():  # registers, shared memory, spills
+            if any(w in line for w in ("Compiling", "Used", "spill")):
+                log(f"[build] {k}: {line.split(':', 1)[-1].strip()}")
 
 
-def check_kernel(tag, dtype, got, ref, fn, plain, nbytes):
+def bound_ms(nbytes, flops, dtype):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / H100_BW * 1e3
+    t_ops = flops / H100_PEAK[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(tag, dtype, got, ref):
+    """``got`` against the plain version's ``ref``: finite, and within the
+    dtype's tolerance of ``ref``'s largest magnitude (the sums run in
+    another order)."""
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     tol = KERNEL_TOL[dtype]
-    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
-    ms = median_ms(fn)
-    plain_ms = median_ms(plain)
-    dev_ms = device_ms(fn)
-    plain_dev_ms = device_ms(plain)
-    log(f"[kernel] {tag} {str(dtype)[6:]}: max|err|={err:.3e} (tol {tol:g} "
-        f"x max|ref|={scale:.3e}) {'ok' if ok else 'FAIL'}; per call, "
-        f"events (launch included) kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms; device time kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f}"
-        f" ms; bytes/call {nbytes / 1e6:.2f} MB -> bound "
-        f"{nbytes / H100_BW * 1e3:.4f} ms at 3.35 TB/s, kernel device time "
-        f"at {nbytes / max(dev_ms, 1e-9) / 1e6:.0f} GB/s")
-    if not ok:
-        raise AssertionError(f"{tag} kernel disagrees ({dtype})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                plain_device_ms=plain_dev_ms)
+    if not (bool(torch.isfinite(got).all()) and err <= tol * scale):
+        raise AssertionError(f"{tag} {dtype}: max|err| {err:.3e} > {tol:g} x "
+                             f"max|ref| {scale:.3e}")
+    return err, scale
+
+
+def measure(tag, dtype, kernel, plain, library, nbytes, flops, cold=False):
+    """Hold ``kernel()`` and the library call against ``plain()``, then
+    time all three: CUDA events (launch included, median of 50, back to
+    back) and device time (profiler).  With ``cold`` (an operand outgrows
+    the L2, or the port's path evicts it between two calls) the device
+    times are taken with the L2 flushed before every call, since that is
+    what a caller sees; the kernel's back-to-back time is kept beside them
+    as ``warm_device_ms``.  ``library`` is ``(name, fn, to_ref)``,
+    ``to_ref`` turning the call's output into the plain layout outside the
+    timed call, or None where no yardstick is wanted."""
+    flush = None
+    if cold:
+        buf = torch.empty(2**25, dtype=torch.int32, device="cuda")  # 128 MB
+        flush = buf.bitwise_not_
+    ref = plain()
+    err, scale = check(tag, dtype, kernel(), ref)
+    out = dict(max_abs_err=err, ms=median_ms(kernel),
+               plain_ms=median_ms(plain),
+               device_ms=device_ms(kernel, flush=flush),
+               plain_device_ms=device_ms(plain, flush=flush), library=None,
+               library_ms=None, library_device_ms=None, bytes=nbytes,
+               flops=flops)
+    lib_txt = ""
+    if library is not None:
+        lib_name, lib_fn, to_ref = library
+        check(f"{tag} library {lib_name}", dtype, to_ref(lib_fn()), ref)
+        out.update(library=lib_name, library_ms=median_ms(lib_fn),
+                   library_device_ms=device_ms(lib_fn, flush=flush))
+        lib_txt = (f", library {lib_name} {out['library_device_ms']:.4f}; "
+                   f"events (launch included) library "
+                   f"{out['library_ms']:.4f}")
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops, dtype)
+    out["share"] = out["bound_ms"] / out["device_ms"]
+    how = "back to back"
+    if cold:
+        out["warm_device_ms"] = device_ms(kernel)
+        out["warm_share"] = out["bound_ms"] / out["warm_device_ms"]
+        how = (f"L2 flushed before each call; kernel back to back "
+               f"{out['warm_device_ms']:.4f} ms ({out['warm_share']:.0%})")
+    log(f"[kernel] {tag} {str(dtype)[6:]}: max|err|={err:.3e} (tol "
+        f"{KERNEL_TOL[dtype]:g} x max|ref|={scale:.3e}) ok; device time "
+        f"({how}) kernel {out['device_ms']:.4f} ms, plain "
+        f"{out['plain_device_ms']:.4f}{lib_txt}; events (launch included, "
+        f"back to back) kernel {out['ms']:.4f}, plain {out['plain_ms']:.4f}; "
+        f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} Mflop -> bound "
+        f"{out['bound_ms']:.4f} ms by {out['bound_by']}, share "
+        f"{out['share']:.0%}")
+    return out
+
+
+def ring_bsr(blocks, ring, valid):
+    """The ring operator as a ``(9 nc, 9 nc)`` BSR matrix of 9x9 blocks on
+    the cell-major vector: one block per valid slot, the blocks of a
+    neighbour repeated in a row summed (the yardstick's layout; the port
+    never builds it)."""
+    nc = blocks.shape[3]
+    dev = blocks.device
+    keep = valid.reshape(-1)
+    rows = torch.arange(nc, device=dev).repeat_interleave(4)[keep]
+    cols = ring.reshape(-1).long()[keep]
+    vals = blocks.permute(3, 0, 1, 2).reshape(nc * 4, 9, 9)[keep]
+    key, inv = torch.unique(rows * nc + cols, sorted=True,
+                            return_inverse=True)
+    summed = torch.zeros((len(key), 9, 9), dtype=blocks.dtype,
+                         device=dev).index_add_(0, inv, vals)
+    crow = torch.zeros(nc + 1, dtype=torch.int32, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(key // nc, minlength=nc), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "BSR support is in beta"
+        return torch.sparse_bsr_tensor(crow, (key % nc).int(), summed,
+                                       size=(9 * nc, 9 * nc))
+
+
+def ring_mv_bytes(nc, n_valid, es):
+    """Blocks of the valid slots, x read and y written once, the ring
+    table (int32) and the valid mask (bytes)."""
+    return n_valid * 81 * es + 2 * 9 * nc * es + nc * 4 * 4 + nc * 4
+
+
+def phase_kernel_ragged():
+    """Both ring kernels against their plain versions on the ragged cases
+    the CPU tests hold against the JAX package (kernels/cases.py)."""
+    dev = torch.device("cuda")
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    for nc in RAGGED_NC:
+        blocks, x, diag, ring, valid = ragged_case(nc, seed=nc)
+        ring = torch.as_tensor(ring, device=dev)
+        valid = torch.as_tensor(valid, device=dev)
+        errs = []
+        for dtype in (torch.float64, torch.float32):
+            b, xx, d = (torch.as_tensor(a, dtype=dtype, device=dev)
+                        for a in (blocks, x, diag))
+            e1, s1 = check(f"ring_mv ragged nc={nc}", dtype,
+                           ringmv.ring_mv(b, xx, ring, valid),
+                           ringmv.ring_mv_reference(b, xx, ring, valid))
+            e2, s2 = check(f"block_diag_mv ragged nc={nc}", dtype,
+                           ringmv.block_diag_mv(d, xx),
+                           ringmv.block_diag_mv_reference(d, xx))
+            errs.append(f"{str(dtype)[6:]} ring_mv {e1:.2e}/{s1:.2e}, "
+                        f"block_diag_mv {e2:.2e}/{s2:.2e}")
+        log(f"[kernel] ragged nc={nc} ({int((~valid.any(1)).sum())} rows "
+            f"with no valid slot): max|err|/max|ref| {'; '.join(errs)}: ok")
 
 
 def phase_kernel_ring(nx, ny, periodic):
@@ -389,32 +528,42 @@ def phase_kernel_ring(nx, ny, periodic):
         mesh = RectangleMesh(nx, ny, LX, LY, device=dev, dtype=torch.float64)
     ring, valid = ring_tables(mesh)
     nc = mesh.nc
+    n_valid = int(valid.sum())
     g = torch.Generator(device=dev).manual_seed(1234)
     b64 = torch.randn((4, 9, 9, nc), generator=g, device=dev,
                       dtype=torch.float64)
     x64 = torch.randn((9, nc), generator=g, device=dev, dtype=torch.float64)
     d64 = torch.randn((9, 9, nc), generator=g, device=dev,
                       dtype=torch.float64)
+    # where the f32 blocks outgrow the 50 MB L2, the solvers' other work
+    # evicts D too (a ring matvec runs between two block-Jacobi applies)
+    cold = 4 * 81 * nc * 4 > 50e6
     out = {}
     for dtype in (torch.float64, torch.float32):
         blocks, x, diag = b64.to(dtype), x64.to(dtype), d64.to(dtype)
         es = blocks.element_size()
-        out[("ring_mv", dtype)] = check_kernel(
-            f"ring_mv nc={nc}", dtype, ringmv.ring_mv(blocks, x, ring, valid),
-            ringmv.ring_mv_reference(blocks, x, ring, valid),
+        A = ring_bsr(blocks, ring, valid)
+        xc = x.T.contiguous().reshape(-1)
+        out[("ring_mv", dtype)] = measure(
+            f"ring_mv nc={nc}", dtype,
             lambda: ringmv.ring_mv(blocks, x, ring, valid),
             lambda: ringmv.ring_mv_reference(blocks, x, ring, valid),
-            4 * 81 * nc * es + 2 * 9 * nc * es + nc * 4 * 4 + nc * 4)
-        out[("block_diag_mv", dtype)] = check_kernel(
-            f"block_diag_mv nc={nc}", dtype, ringmv.block_diag_mv(diag, x),
-            ringmv.block_diag_mv_reference(diag, x),
+            ("cuSPARSE bsrmv (torch.mv of a BSR tensor)",
+             lambda: torch.mv(A, xc), lambda y: y.reshape(nc, 9).T),
+            ring_mv_bytes(nc, n_valid, es), 2 * 81 * n_valid, cold)
+        dc = diag.permute(2, 0, 1).contiguous()
+        rc = x.T.contiguous()[:, :, None]
+        out[("block_diag_mv", dtype)] = measure(
+            f"block_diag_mv nc={nc}", dtype,
             lambda: ringmv.block_diag_mv(diag, x),
             lambda: ringmv.block_diag_mv_reference(diag, x),
-            (81 + 18) * nc * es)
+            ("torch.bmm (nc, 9, 9) x (nc, 9, 1)", lambda: torch.bmm(dc, rc),
+             lambda z: z[:, :, 0].T),
+            (81 + 18) * nc * es, 2 * 81 * nc, cold)
     return out
 
 
-def phase_kernel_tridiag(batch, n):
+def phase_kernel_tridiag(batch, n, yardstick=True):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
 
@@ -427,12 +576,19 @@ def phase_kernel_tridiag(batch, n):
     out = {}
     for dtype in (torch.float64, torch.float32):
         a, b, c, r = (t.to(dtype) for t in (dl, dd, du, rhs))
-        out[("tridiag", dtype)] = check_kernel(
-            f"tridiag {batch}x{n}", dtype, tridiag.tridiag_solve(a, b, c, r),
-            tridiag.tridiag_reference(a, b, c, r),
+        lib = None
+        if yardstick:
+            dense = (torch.diag_embed(b) + torch.diag_embed(a[:, 1:], -1)
+                     + torch.diag_embed(c[:, :-1], 1))
+            lib = ("torch.linalg.solve, dense batched LU (O(n^3), not O(n))",
+                   lambda: torch.linalg.solve(dense, r[:, :, None]),
+                   lambda x: x[:, :, 0])
+        # Thomas does ~8n operations per column (2 divisions among them)
+        out[("tridiag", dtype)] = measure(
+            f"tridiag {batch}x{n}", dtype,
             lambda: tridiag.tridiag_solve(a, b, c, r),
-            lambda: tridiag.tridiag_reference(a, b, c, r),
-            5 * batch * n * a.element_size())
+            lambda: tridiag.tridiag_reference(a, b, c, r), lib,
+            5 * batch * n * a.element_size(), 8 * batch * n)
     return out
 
 
@@ -761,12 +917,16 @@ def main():
     smi = card()
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
-    kern = {}
-    kern.update(phase_kernel_ring(NX3, NY3, periodic=True))
-    kern_2d = phase_kernel_ring(NX, NY, periodic=False)
-    kern.update(phase_kernel_tridiag(2 * NX3 * NY3 * 2 * 3, NZ3 + 1))
-    phase_kernel_tridiag(NX3 * NY3 * 2 * 3, NZ3 + 1)
-    phase_kernel_tridiag(4096, 300)
+    phase_kernel_ragged()
+    # each kernel at the shapes the port runs it at, the 3D step's first
+    ring = [(f"nc={NX3 * NY3 * 2}", phase_kernel_ring(NX3, NY3, True)),
+            (f"nc={NX * NY * 2}", phase_kernel_ring(NX, NY, False))]
+    cols = NX3 * NY3 * 2 * 3  # (cell, node) columns of the 3D mesh
+    shapes = {"ring_mv": ring, "block_diag_mv": ring, "tridiag": [
+        (f"{2 * cols}x{NZ3 + 1}", phase_kernel_tridiag(2 * cols, NZ3 + 1)),
+        (f"{cols}x{NZ3 + 1}", phase_kernel_tridiag(cols, NZ3 + 1))]}
+    # a long column: any n, no fallback (no port shape: no yardstick)
+    phase_kernel_tridiag(4096, 300, yardstick=False)
     t0 = time.perf_counter()
     n2, s2 = phase_slice2d(smi)
     phase_parity2d()
@@ -787,23 +947,26 @@ def main():
     t0 = time.perf_counter()
     phase_model_parity()
     log(f"[phase_model_parity] {time.perf_counter() - t0:.1f} s")
-    # kernel times at the 3D main path's shapes; the ring matvec also at
-    # the 2D CN bench's ring, as before
+    # the top-level numbers are f32 at the 3D step's shape; "shapes" has
+    # every shape and dtype measured in phase 3
     rows = []
     for k in KERNELS:
-        k32 = kern[(k, torch.float32)]
+        main_shape = shapes[k][0][1][(k, torch.float32)]
         row = {"name": k, "route": "cuda", "source": SOURCES[k][0],
                "replaces": SOURCES[k][1],
                "launches": n3[k] + n2[k] + nm[k],
                "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k],
                                     "flowsolver2d": nm[k]},
-               "max_abs_err": k32["max_abs_err"], "ms": k32["ms"],
-               "plain_ms": k32["plain_ms"], "device_ms": k32["device_ms"],
-               "plain_device_ms": k32["plain_device_ms"]}
-        if k != "tridiag":
-            row["ms_cn2d_shape"] = kern_2d[(k, torch.float32)]["ms"]
-            row["plain_ms_cn2d_shape"] = kern_2d[(k, torch.float32)][
-                "plain_ms"]
+               "library": main_shape["library"]}
+        row.update({f: main_shape[f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "share", "plain_device_ms",
+            "library_device_ms")})
+        row["shapes"] = [
+            {"shape": label, "dtype": str(dt)[6:],
+             **{f: v for f, v in res[(k, dt)].items() if f != "library"}}
+            for label, res in shapes[k]
+            for dt in (torch.float32, torch.float64)]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -237,19 +237,23 @@ def test_interp_initial_conditions():
 
 def test_demo_2d_channel_through_the_facade():
     """``demos/demo_2d_channel.py`` with its import line changed to the
-    port and its end time cut to 3 exports."""
+    port, its mesh asked for on the CPU (the facade's default is the
+    card) and its end time cut to 3 exports."""
     with open(os.path.join(ROOT, "demos", "demo_2d_channel.py")) as f:
         src = f.read()
     assert src.count("from thetis_tpu import *") == 1
     assert src.count("t_end = 2 * 3600") == 1
+    assert src.count("RectangleMesh(nx, ny, lx, ly)") == 1
     src = src.replace("from thetis_tpu import *",
                       "from thetis_tpu_torch import *")
     src = src.replace("t_end = 2 * 3600", "t_end = 300.0")
+    src = src.replace("RectangleMesh(nx, ny, lx, ly)",
+                      'RectangleMesh(nx, ny, lx, ly, device="cpu")')
     ns = {"__name__": "demo"}
     exec(compile(src, "demo_2d_channel.py", "exec"), ns)
     s = ns["solver_obj"]
     assert isinstance(s, FlowSolver2d)
-    assert s.mesh2d.device.type in ("cpu", "cuda")
+    assert s.mesh2d.device.type == "cpu"
     v0 = s.compute_volume_2d()
     s.iterate()
     assert s.iteration == 6 and s.i_export == 3
@@ -257,6 +261,31 @@ def test_demo_2d_channel_through_the_facade():
         assert bool(torch.isfinite(s.fields[key].data).all())
     assert float(s.fields.uv_2d.data.abs().max()) > 1e-3
     assert abs(s.compute_volume_2d() - v0) <= 1e-10 * abs(v0)
+
+
+FACADE_MESHES = ("RectangleMesh", "PeriodicRectangleMesh")
+
+
+@pytest.mark.parametrize("gen", FACADE_MESHES)
+def test_facade_mesh_without_a_card_raises(gen, monkeypatch):
+    """Without ``device=`` the facade's meshes go to the card; with no
+    card they raise and say how to ask for the CPU."""
+    import thetis_tpu_torch as facade
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(facade, gen)(4, 3, 1e3, 1e3)
+
+
+@pytest.mark.parametrize("gen", FACADE_MESHES)
+def test_facade_mesh_on_the_cpu_when_asked(gen, monkeypatch):
+    import thetis_tpu_torch as facade
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = getattr(facade, gen)(4, 3, 1e3, 1e3, device="cpu")
+    assert mesh.device.type == "cpu" and mesh.dtype == torch.float64
+    assert mesh.nc == 24
+    assert mesh.facet_is_interior.device.type == "cpu"
 
 
 def _opts_refused():

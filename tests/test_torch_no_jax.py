@@ -1,8 +1,8 @@
 """The port stands alone: importing ``thetis_tpu_torch`` and every one of
 its submodules pulls in neither JAX, nor the JAX package, nor Triton
 (whose kernels are built only inside the launching function), and no
-source file of the port or of ``chip_smoke.py`` has an import statement
-naming JAX or the JAX package."""
+source file of the port, of ``chip_smoke.py`` or of ``chip_ab.py`` has an
+import statement naming JAX or the JAX package."""
 import os
 import re
 import subprocess
@@ -59,7 +59,7 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|thetis_tpu)"
 
 
 def test_no_import_statement_names_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_ab.py")]
     for d, subdirs, fs in os.walk(PKG):
         subdirs[:] = [s for s in subdirs if s != "_build"]  # build output
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]

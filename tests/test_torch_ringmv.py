@@ -12,9 +12,15 @@ Block-Jacobi apply port: ``block_diag_mv`` (plain version of
 The f32 FGMRES solve is held to its f64 twin at 1e-4 (ksp_rtol 1e-5 on
 both, plus f32 roundoff).
 
-The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
-against ``ring_mv_reference`` there); here the wrapper must take the
-plain version for CPU tensors without counting a launch."""
+Ragged cases (``thetis_tpu_torch/kernels/cases.py``: cell counts around
+the kernels' 32-cell tile, random ring tables with duplicate neighbours,
+junk in invalid slots and rows with no valid slot): both plain versions
+against the reference's ``ring_apply`` and einsum, f64, rtol 1e-12.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
+them against their plain versions there, on the same ragged cases); here
+the wrappers must take the plain version for CPU tensors without
+counting a launch."""
 import numpy as np
 import pytest
 
@@ -28,6 +34,7 @@ from thetis_tpu.solvers import assembled as jas  # noqa: E402
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from thetis_tpu_torch.solvers import assembled as tas  # noqa: E402
 from thetis_tpu_torch.kernels import ringmv  # noqa: E402
+from thetis_tpu_torch.kernels.cases import RAGGED_NC, ragged_case  # noqa: E402
 
 MESHES = {
     "rect": (lambda g, **kw: g.RectangleMesh(8, 4, 1e3, 5e2, **kw)),
@@ -169,6 +176,61 @@ def test_wrapper_rejects_bad_inputs(bad):
         xT = xT[:, :-1]
     with pytest.raises((TypeError, ValueError)):
         ringmv.ring_mv(bT, xT, ring_t, valid_t)
+
+
+def ragged_args(nc):
+    blocks_T, x_T, diag_T, ring, valid = ragged_case(nc, seed=nc)
+    return blocks_T, x_T, diag_T, ring, valid, tuple(
+        torch.tensor(a) for a in (blocks_T, x_T, ring, valid))
+
+
+@pytest.mark.parametrize("nc", RAGGED_NC)
+def test_ragged_cases_cover_the_edges(nc):
+    """Each case of the list that ``chip_smoke.py`` also runs on the card
+    has a duplicate neighbour, junk in its invalid slots and, past one
+    cell, rows with no valid slot (the last cell's among them)."""
+    blocks_T, x_T, diag_T, ring, valid, _ = ragged_args(nc)
+    assert ring.dtype == np.int32 and ring.min() >= 0 and ring.max() < nc
+    assert (ring[:, 0] == np.arange(nc)).all()
+    assert ((ring[:, 1] == ring[:, 2]) & valid[:, 1] & valid[:, 2]).any()
+    assert (~valid).any()
+    junk = blocks_T.transpose(3, 0, 1, 2)[~valid]      # (n_invalid, 9, 9)
+    assert (np.abs(junk).max(axis=(1, 2)) > 0).all()
+    if nc > 1:
+        assert not valid[-1].any()
+    assert nc % 32 != 0
+
+
+@pytest.mark.parametrize("nc", RAGGED_NC)
+def test_ragged_ring_mv_matches_ring_apply(nc):
+    """The plain version against the reference's ring gather on random
+    ring tables: duplicate neighbours summed, invalid slots skipped even
+    with nonzero blocks (the reference's operator carries zero blocks
+    there), rows with no valid slot zero; the CPU wrapper takes the plain
+    version and counts no launch."""
+    blocks_T, x_T, _, ring, valid, args = ragged_args(nc)
+    jb = (blocks_T * valid.T[:, None, None, :]).transpose(3, 0, 1, 2)
+    want = jas.ring_apply(jnp.asarray(jb), jnp.asarray(ring),
+                          jnp.asarray(x_T.T), stencil=None)
+    got = ringmv.ring_mv_reference(*args)
+    close(got.T, want)
+    ringmv.reset_launches()
+    assert torch.equal(ringmv.ring_mv(*args), got)
+    assert ringmv.launches() == 0
+    dead = ~valid.any(axis=1)
+    assert (dead.any() or nc == 1) and bool((got[:, dead] == 0).all())
+
+
+@pytest.mark.parametrize("nc", RAGGED_NC)
+def test_ragged_block_diag_mv_matches_reference_einsum(nc):
+    _, x_T, diag_T, _, _, _ = ragged_args(nc)
+    want = jnp.einsum("ijc,jc->ic", jnp.asarray(diag_T), jnp.asarray(x_T))
+    d, r = torch.tensor(diag_T), torch.tensor(x_T)
+    got = ringmv.block_diag_mv_reference(d, r)
+    close(got, want)
+    ringmv.reset_launches()
+    assert torch.equal(ringmv.block_diag_mv(d, r), got)
+    assert ringmv.launches("block_diag_mv") == 0
 
 
 def test_batched_inverse_matches_gauss_jordan():

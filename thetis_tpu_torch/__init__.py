@@ -24,9 +24,10 @@ namespace that the 2D model needs (``solver2d.FlowSolver2d``,
 ``RectangleMesh``, ``FunctionSpace``, ``Function``, ``SpatialCoordinate``,
 ``Constant``, ``exp``), so ``demos/demo_2d_channel.py`` runs with its one
 import line changed.  The facade's mesh generators put the mesh on the
-CUDA device when there is one (else the CPU), in float64, unless
-``device=``/``dtype=`` say otherwise.  The rest of the reference's
-``api.py`` waits for ROADMAP A10.
+CUDA device, in float64, unless ``device=``/``dtype=`` say otherwise;
+without a card they raise unless the caller asks for the CPU with
+``device="cpu"``.  The rest of the reference's ``api.py`` waits for
+ROADMAP A10.
 """
 import torch
 
@@ -50,7 +51,11 @@ pi = float(torch.pi)
 def _device(device):
     if device is not None:
         return device
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the facade's meshes go to the card unless "
+            'asked otherwise; pass device="cpu" to run on the CPU')
+    return "cuda"
 
 
 def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,

@@ -20,8 +20,10 @@ __all__ = ["load_library", "build_libraries", "CSRC_DIR"]
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+# -Xptxas -v: each kernel's registers, shared memory and spills go to the
+# compiler output that build_libraries returns
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _loaded = {}
 
 
@@ -45,15 +47,15 @@ def _paths(name):
 def build_libraries(names):
     """Compile every ``csrc/<name>.cu`` of ``names`` whose library is not
     built yet, one ``nvcc`` process per source, all started together.
-    Returns ``{name: seconds}`` for the sources compiled (0.0 for those
-    already built); raises if any build fails."""
+    Returns ``{name: (seconds, compiler output)}`` (``(0.0, "")`` for
+    those already built); raises if any build fails."""
     t0 = time.perf_counter()
     procs = {}
     secs = {}
     for name in names:
         src, path = _paths(name)
         if os.path.exists(path):
-            secs[name] = 0.0
+            secs[name] = (0.0, "")
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -68,10 +70,10 @@ def build_libraries(names):
         for name, (src, path, tmp, cmd, log, proc) in list(pending.items()):
             if proc.poll() is None:
                 continue
-            secs[name] = time.perf_counter() - t0
             del pending[name]
             log.seek(0)
             out = log.read()
+            secs[name] = (time.perf_counter() - t0, out)
             log.close()
             os.remove(tmp + ".log")
             if proc.returncode != 0:

@@ -1,9 +1,10 @@
 r"""Assembled 1-ring block matvec and block-Jacobi apply: hand-written CUDA
 kernels + plain versions.
 
-Replaces ``thetis_tpu/kernels/ringmv.py::_mv_kernel`` (Pallas, TPU), which
-``ShiftStencil.apply_T`` reaches through ``ring_mv_pallas`` for every
-FGMRES matvec of the assembled semi-implicit CN solve:
+:func:`ring_mv` replaces ``thetis_tpu/kernels/ringmv.py::_mv_kernel``
+(Pallas, TPU, behind ``_mv_call``), which ``ShiftStencil.apply_T``
+reaches through ``ring_mv_pallas`` for every FGMRES matvec of the
+assembled semi-implicit CN solve:
 
     y[i, c] = sum_{s: valid[c, s]} sum_k B[s, i, k, c] * x[k, ring[c, s]]
 
@@ -13,17 +14,29 @@ bool.  This equals ``ring_apply(blocks, ring, x)`` for the whole
 operator: the ring gather already covers the nonconforming rows that the
 TPU's shift stencil adds as separate corrections.
 
-The kernel (``csrc/ring_mv.cu``) runs one thread per cell; its bound is
-the device-memory bytes of the blocks (see the source note).  The
-wrapper :func:`ring_mv` runs :func:`ring_mv_reference` for CPU tensors
-and launches the kernel for CUDA tensors; a CUDA tensor never takes the
-plain version, and a build or launch failure raises.
-
 :func:`block_diag_mv` replaces ``thetis_tpu/kernels/ringmv.py::
-_bjac_kernel``: the per-cell block-diagonal apply ``z[:, c] = D[:, :, c]
-r[:, c]`` that the assembled ring solve uses as its block-Jacobi
-preconditioner on every FGMRES iteration (``csrc/block_diag_mv.cu``, the
-same dispatch rules).
+_bjac_kernel`` (behind ``_bjac_call``): the per-cell block-diagonal apply
+``z[:, c] = D[:, :, c] r[:, c]`` that the assembled ring solve uses as its
+block-Jacobi preconditioner on every FGMRES iteration.
+
+Both read each block entry once for one multiply-add (0.5 flop per byte
+in f32), so bytes bound them, never arithmetic: tensor cores and TMA have
+no reuse to work on.  The port runs them at two shapes.  At the 2D CN
+bench's nc = 102,400 the blocks (133 MB for ring_mv in f32) stream from
+device memory; at the 3D step's barotropic nc = 4,608 they are 6 MB and
+stay in the L2 across a solve, so a launch and a couple of load
+latencies are the time, and the grid has to put every SM to work.  The
+kernels therefore run one thread per (cell, output row) in tiles of 32
+cells x 9 rows (144 CTAs at nc 4,608, where one thread per cell gave 18):
+``csrc/ring_mv.cu`` stages each tile's gathered neighbour values once in
+shared memory; ``csrc/block_diag_mv.cu`` reads its tile's ``r`` values
+directly (see the source notes).  The sums run in the plain version's
+order per row, so f64 agrees with it to roundoff.
+
+Each wrapper runs the plain version for CPU tensors and launches its
+kernel for CUDA tensors; a CUDA tensor never takes the plain version, and
+a build or launch failure raises.  ``kernels/cases.py`` holds the ragged
+inputs that the CPU tests and ``chip_smoke.py`` share.
 """
 import ctypes
 
