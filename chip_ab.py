@@ -5,6 +5,13 @@ checkout, in the order parent, change, change, parent, and prints
 * ring_mv and block_diag_mv at the 2D CN bench's nc = 102,400, f32 and
   f64: device time per call (profiler), back to back and with the L2
   flushed before each call (how the solvers call them there);
+* the tridiagonal solve, f32 and f64, back to back: 27,648 and 13,824
+  columns of 13 with every operand of one shape, the 3D step's velocity
+  solve (coefficients (13,824, 13), right-hand side (2, 13,824, 13): all
+  device kernels the call launches, copies of broadcast operands
+  included), 4096 columns of 300, and one tile's 64 columns of 13 rows and
+  of one row (the latency of a call with next to nothing to move, with
+  and without the recurrence's dependent chain);
 * ``chip_smoke.py``'s 2D CN slice and 3D baroclinic step (its phases 4
   and 6: ms/step, launches, FGMRES cycles, the profiler's device time of
   one 3D step).
@@ -40,10 +47,10 @@ print("card:", smi)
 
 def kernels_ab(cs, reps=20):
     """Device µs per call of the working directory's ring_mv and
-    block_diag_mv at nc 102,400; ``cs`` is that checkout's
-    ``chip_smoke``."""
+    block_diag_mv at nc 102,400 and of its tridiagonal solve; ``cs`` is
+    that checkout's ``chip_smoke``."""
     import torch
-    from thetis_tpu_torch.kernels import ringmv
+    from thetis_tpu_torch.kernels import ringmv, tridiag
     from thetis_tpu_torch.mesh.generation import RectangleMesh
     from thetis_tpu_torch.solvers.assembled import ring_tables
 
@@ -69,8 +76,10 @@ def kernels_ab(cs, reps=20):
                     buf.bitwise_not_()
                 fn()
 
+        # all kernels of a call but the flush, over the calls seen of the
+        # costliest one
         rows = [r for r in cs.device_rows(run) if "bitwise_not" not in r[2]]
-        return sum(r[0] for r in rows) / rows[0][1]  # one kernel per call
+        return sum(r[0] for r in rows) / rows[0][1]
 
     for dtype in (torch.float32, torch.float64):
         b, x, d = (t.to(dtype) for t in (b64, x64, d64))
@@ -81,6 +90,26 @@ def kernels_ab(cs, reps=20):
             print(f"[kernel ab] {name} nc={nc} {str(dtype)[6:]}: device µs "
                   f"per call back to back {device_us(fn, False):.2f}, L2 "
                   f"flushed {device_us(fn, True):.2f}", flush=True)
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=g, device=dev,
+                          dtype=torch.float64) * 2 - 1
+
+    def solve_us(bc, n, nrhs, dtype):
+        dl, du = rnd(bc, n), rnd(bc, n)
+        dd = 2.0 + dl.abs() + du.abs() + rnd(bc, n).abs()
+        rhs = rnd(bc, n) if nrhs == 1 else rnd(nrhs, bc, n)
+        ops = [t.to(dtype) for t in (dl, dd, du, rhs)]
+        return device_us(lambda: tridiag.tridiag_solve(*ops), False)
+
+    dtypes = (torch.float32, torch.float64)
+    for bc, n, nrhs in ((27648, 13, 1), (13824, 13, 1), (13824, 13, 2),
+                        (4096, 300, 1), (64, 13, 1), (64, 1, 1)):
+        for dtype in dtypes:
+            print(f"[kernel ab] tridiag {bc}x{n}"
+                  + (f" x{nrhs} shared" if nrhs > 1 else "")
+                  + f" {str(dtype)[6:]}: device µs per call back to back "
+                  f"{solve_us(bc, n, nrhs, dtype):.2f}", flush=True)
 
 
 def main():

@@ -23,20 +23,30 @@ Phases, each printing its lines:
 1. device: the card, its power limit, the TF32 switches (both off);
 2. build: one nvcc per kernel source, all started together, with seconds;
 3. kernels against plain, f64 and f32: ring_mv and block_diag_mv on the
-   ragged cases of ``thetis_tpu_torch/kernels/cases.py``, then every
-   kernel at the shapes the port runs it at (nc 4,608 and 102,400;
-   tridiag 27,648 and 13,824 columns of 13), each with one PyTorch call
-   computing the same function as its yardstick (cuSPARSE bsrmv,
-   ``torch.bmm``, ``torch.linalg.solve``); device time (profiler; at nc
-   102,400 with the L2 flushed before each call, as the solvers call the
-   kernels there, and the kernel's back-to-back time beside it),
-   CUDA-event time (median of 50), bytes, the bound and the kernel's
-   share of it;
+   ragged cases of ``thetis_tpu_torch/kernels/cases.py``, the tridiagonal
+   solve on its ragged cases there (column counts around the tile, n = 1
+   to 300, one and two right-hand sides a column; two must equal two
+   solves of one bit for bit), on operands that start off a 16-byte
+   boundary, on broadcast patterns that are copied first and on each side
+   of the n at which its general kernel takes over; then every kernel at
+   the shapes the port runs it at (nc 4,608 and 102,400; tridiag the
+   velocity solve's 13,824 columns of 13 with two right-hand sides sharing
+   the coefficients, 13,824 and 27,648 columns of 13, and 4096 columns of
+   300), each with one PyTorch call computing the same function as its
+   yardstick (cuSPARSE bsrmv, ``torch.bmm``, ``torch.linalg.solve`` on
+   dense matrices);
+   device time (profiler; at nc 102,400 with the L2 flushed before each
+   call, as the solvers call the kernels there, and the kernel's
+   back-to-back time beside it), CUDA-event time (median of 50), bytes,
+   the bound and the kernel's share of it;
 4. 2D slice: 1 warm-up + 10 timed f32 CN steps, launch counts, rates;
 5. 2D parity: one f64 step on the GPU (kernels) against the same step on
    the CPU (the port's plain path);
 6. 3D slice: 1 warm-up + 20 timed f32 steps (the bench's n), launches per
-   step, rates, peak memory, a per-phase and a profiler breakdown;
+   step, rates, peak memory, a per-phase breakdown and, from a fresh
+   process (``python3 chip_smoke.py profile3d``), the profiler's device
+   kernels of one step and of the velocity column solve alone (one
+   tridiagonal kernel, no copy of a coefficient);
 7. 3D parity: one f64 step on the GPU against the CPU plain path;
 8. 2D model, SSPRK33, f32, full size: 1 warm-up + 30 timed steps through
    ``iterate()``, rates, launches, a profiler count per step;
@@ -59,6 +69,7 @@ without a CUDA device it exits 1 at once.  Run from the repository root:
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -74,7 +85,9 @@ from thetis_tpu_torch.equations.shallowwater_2d import (
 from thetis_tpu_torch.fem.assembly import DGAssembler
 from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
 from thetis_tpu_torch.kernels import ringmv, tridiag
-from thetis_tpu_torch.kernels.cases import RAGGED_NC, ragged_case
+from thetis_tpu_torch.equations.momentum_3d import vertical_viscosity_implicit
+from thetis_tpu_torch.kernels.cases import (RAGGED_NC, RAGGED_TRIDIAG,
+                                            ragged_case, ragged_tridiag_case)
 from thetis_tpu_torch.mesh.generation import (PeriodicRectangleMesh,
                                               RectangleMesh)
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
@@ -166,21 +179,29 @@ def median_ms(fn, reps=50, warm=5):
 
 def device_rows(fn):
     """Run ``fn`` under torch.profiler; returns ``(us, count, name)`` of
-    every device kernel, largest device time first."""
+    every device kernel, largest device time first.  Now and then a
+    capture comes back without one device record (on the card, of 1 launch
+    and of 25, in a fresh process too, and twice running), so an empty one
+    is taken again a moment later, five times at most; the callers raise
+    if the rows are still empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # host ops; their kernels are rows of their own
-        us = getattr(e, "self_device_time_total", None)
-        rows.append((e.self_cuda_time_total if us is None else us, e.count,
-                     e.key))
+    for attempt in range(5):
+        time.sleep(0.2 * attempt)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue  # host ops; their kernels are rows of their own
+            us = getattr(e, "self_device_time_total", None)
+            rows.append((e.self_cuda_time_total if us is None else us,
+                         e.count, e.key))
+        if rows:
+            break
     return sorted(rows, reverse=True)
 
 
@@ -415,7 +436,8 @@ def check(tag, dtype, got, ref):
     return err, scale
 
 
-def measure(tag, dtype, kernel, plain, library, nbytes, flops, cold=False):
+def measure(tag, dtype, kernel, plain, library, nbytes, flops, cold=False,
+            lib_reps=(50, 20)):
     """Hold ``kernel()`` and the library call against ``plain()``, then
     time all three: CUDA events (launch included, median of 50, back to
     back) and device time (profiler).  With ``cold`` (an operand outgrows
@@ -424,7 +446,8 @@ def measure(tag, dtype, kernel, plain, library, nbytes, flops, cold=False):
     what a caller sees; the kernel's back-to-back time is kept beside them
     as ``warm_device_ms``.  ``library`` is ``(name, fn, to_ref)``,
     ``to_ref`` turning the call's output into the plain layout outside the
-    timed call, or None where no yardstick is wanted."""
+    timed call; ``lib_reps`` the calls of it under CUDA events and under
+    the profiler (fewer where one call takes a second)."""
     flush = None
     if cold:
         buf = torch.empty(2**25, dtype=torch.int32, device="cuda")  # 128 MB
@@ -434,18 +457,16 @@ def measure(tag, dtype, kernel, plain, library, nbytes, flops, cold=False):
     out = dict(max_abs_err=err, ms=median_ms(kernel),
                plain_ms=median_ms(plain),
                device_ms=device_ms(kernel, flush=flush),
-               plain_device_ms=device_ms(plain, flush=flush), library=None,
-               library_ms=None, library_device_ms=None, bytes=nbytes,
+               plain_device_ms=device_ms(plain, flush=flush), bytes=nbytes,
                flops=flops)
-    lib_txt = ""
-    if library is not None:
-        lib_name, lib_fn, to_ref = library
-        check(f"{tag} library {lib_name}", dtype, to_ref(lib_fn()), ref)
-        out.update(library=lib_name, library_ms=median_ms(lib_fn),
-                   library_device_ms=device_ms(lib_fn, flush=flush))
-        lib_txt = (f", library {lib_name} {out['library_device_ms']:.4f}; "
-                   f"events (launch included) library "
-                   f"{out['library_ms']:.4f}")
+    lib_name, lib_fn, to_ref = library
+    check(f"{tag} library {lib_name}", dtype, to_ref(lib_fn()), ref)
+    out.update(library=lib_name,
+               library_ms=median_ms(lib_fn, lib_reps[0],
+                                    warm=min(5, lib_reps[0])),
+               library_device_ms=device_ms(lib_fn, lib_reps[1], flush))
+    lib_txt = (f", library {lib_name} {out['library_device_ms']:.4f}; "
+               f"events (launch included) library {out['library_ms']:.4f}")
     out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops, dtype)
     out["share"] = out["bound_ms"] / out["device_ms"]
     how = "back to back"
@@ -563,7 +584,90 @@ def phase_kernel_ring(nx, ny, periodic):
     return out
 
 
-def phase_kernel_tridiag(batch, n, yardstick=True):
+def phase_kernel_tridiag_ragged():
+    """The tridiagonal kernels against the plain version on the ragged
+    cases the CPU tests hold against the JAX package (kernels/cases.py),
+    and where the wrapper's decisions change."""
+    dev = torch.device("cuda")
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+
+    def held(tag, dtype, ops):
+        got = tridiag.tridiag_solve(*ops)
+        err, scale = check(tag, dtype, got, tridiag.tridiag_reference(*ops))
+        worst[dtype] = max(worst[dtype], err / scale)
+        return got
+
+    for bc, n, nrhs in RAGGED_TRIDIAG:
+        ops64 = [torch.as_tensor(a, device=dev)
+                 for a in ragged_tridiag_case(bc, n, nrhs, seed=bc + n)]
+        for dtype in worst:
+            ops = [a.to(dtype) for a in ops64]
+            tag = f"tridiag ragged {bc}x{n} R={nrhs}"
+            got = held(tag, dtype, ops)
+            if nrhs > 1:  # each right-hand side alone: the same bits
+                alone = torch.stack([tridiag.tridiag_solve(*ops[:3], r)
+                                     for r in ops[3]])
+                if not torch.equal(alone, got):
+                    raise AssertionError(f"{tag} {dtype}: R = {nrhs} differs "
+                                         f"from {nrhs} solves of one")
+            elif bc > 1:  # contiguous views starting one column in: off
+                # the 16-byte boundary for odd n, so no vector copies
+                off = [a[1:] for a in ops]
+                if not torch.equal(tridiag.tridiag_solve(*off), got[1:]):
+                    raise AssertionError(f"{tag} {dtype}: a view one column "
+                                         "in gives other bits")
+    log(f"[kernel] tridiag ragged: {len(RAGGED_TRIDIAG)} cases (columns x "
+        f"rows x right-hand sides) in f64 and f32, R = 2 bit-equal to two "
+        f"solves, offset views bit-equal: worst max|err|/max|ref| "
+        + ", ".join(f"{str(k)[6:]} {v:.2e} (tol {KERNEL_TOL[k]:g})"
+                    for k, v in worst.items()) + ": ok")
+    # each side of the n at which no tile fits in shared memory any more
+    for dtype in worst:
+        es = torch.empty((), dtype=dtype).element_size()
+        for nrhs in (1, 2):
+            n = 1
+            while tridiag.tile_geometry(1, n, es, nrhs) is not None:
+                n += 1
+            for m in (n - 1, n):
+                ops = [torch.as_tensor(a, device=dev).to(dtype)
+                       for a in ragged_tridiag_case(70, m, nrhs, seed=m)]
+                geom = tridiag.tile_geometry(70, m, es, nrhs)
+                held(f"tridiag 70x{m} R={nrhs}", dtype, ops)
+                log(f"[kernel] tridiag 70x{m} R={nrhs} {str(dtype)[6:]}: "
+                    + ("general kernel" if geom is None else
+                       f"tiled, {geom.cols} columns and {geom.smem_bytes} "
+                       "shared bytes a block") + ": ok")
+    # three and four right-hand sides a column go through the tile's one
+    # or two slots in turns
+    for nrhs, n in ((3, 13), (4, 14)):
+        ops = [torch.as_tensor(a, device=dev)
+               for a in ragged_tridiag_case(1000, n, nrhs, seed=nrhs)]
+        got = held(f"tridiag 1000x{n} R={nrhs}", torch.float64, ops)
+        alone = torch.stack([tridiag.tridiag_solve(*ops[:3], r)
+                             for r in ops[3]])
+        if not torch.equal(alone, got):
+            raise AssertionError(f"tridiag R = {nrhs} differs from {nrhs} "
+                                 "solves of one")
+    # broadcast patterns the wrapper copies first (tests/test_torch_tridiag)
+    rng = np.random.default_rng(7)
+    for shapes in ([(4,), (4,), (4,), (2, 4)],
+                   [(2, 6, 3), (6, 3), (6, 3), (6, 3)],
+                   [(1, 6, 3), (2, 1, 3), (6, 1), (2, 6, 3)]):
+        dl, dd, du, rhs = (rng.uniform(-1, 1, size=sh + (13,))
+                           for sh in shapes)
+        ops = [torch.as_tensor(a, device=dev) for a in (dl, dd + 4.0, du, rhs)]
+        full = torch.broadcast_shapes(*(t.shape for t in ops))
+        check(f"tridiag broadcast {shapes}", torch.float64,
+              tridiag.tridiag_solve(*ops),
+              tridiag.tridiag_reference(*(t.expand(full) for t in ops)))
+    log("[kernel] tridiag with 3 and 4 right-hand sides a column, and "
+        "broadcast patterns that are copied first: ok")
+
+
+def phase_kernel_tridiag(bc, n, nrhs=1):
+    """``bc`` coefficient columns of ``n`` rows; the right-hand side has
+    their shape, or ``(nrhs, bc, n)`` with ``nrhs`` > 1 sharing each
+    column's coefficients (the velocity solve: the two components)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
 
@@ -571,24 +675,32 @@ def phase_kernel_tridiag(batch, n, yardstick=True):
         return torch.rand(shape, generator=g, device=dev,
                           dtype=torch.float64) * 2 - 1
 
-    dl, du, rhs = rnd(batch, n), rnd(batch, n), rnd(batch, n)
-    dd = 2.0 + dl.abs() + du.abs() + rnd(batch, n).abs()  # dominant
+    dl, du = rnd(bc, n), rnd(bc, n)
+    rhs = rnd(bc, n) if nrhs == 1 else rnd(nrhs, bc, n)
+    dd = 2.0 + dl.abs() + du.abs() + rnd(bc, n).abs()  # dominant
     out = {}
     for dtype in (torch.float64, torch.float32):
         a, b, c, r = (t.to(dtype) for t in (dl, dd, du, rhs))
-        lib = None
-        if yardstick:
-            dense = (torch.diag_embed(b) + torch.diag_embed(a[:, 1:], -1)
-                     + torch.diag_embed(c[:, :-1], 1))
-            lib = ("torch.linalg.solve, dense batched LU (O(n^3), not O(n))",
-                   lambda: torch.linalg.solve(dense, r[:, :, None]),
-                   lambda x: x[:, :, 0])
-        # Thomas does ~8n operations per column (2 divisions among them)
+        # the yardstick's dense (bc, n, n) matrices are made outside the
+        # timed call (2.9 GB in f64 at 4096 x 300)
+        dense = torch.diag_embed(b)
+        dense.diagonal(-1, 1, 2).copy_(a[:, 1:])
+        dense.diagonal(1, 1, 2).copy_(c[:, :-1])
+        cols = r.reshape(nrhs, bc, n).permute(1, 2, 0).contiguous()
+        lib = ("torch.linalg.solve, dense batched LU (O(n^3), not O(n))",
+               lambda: torch.linalg.solve(dense, cols),
+               lambda x: x.permute(2, 0, 1).reshape(r.shape))
+        # each operand read once, x written once; Thomas does 3 operations
+        # a row to eliminate and 5 a row and right-hand side (2 divisions
+        # among the 8)
+        tag = f"tridiag {bc}x{n}" + (f" x{nrhs} shared" if nrhs > 1 else "")
         out[("tridiag", dtype)] = measure(
-            f"tridiag {batch}x{n}", dtype,
+            tag, dtype,
             lambda: tridiag.tridiag_solve(a, b, c, r),
             lambda: tridiag.tridiag_reference(a, b, c, r), lib,
-            5 * batch * n * a.element_size(), 8 * batch * n)
+            (3 + 2 * nrhs) * bc * n * a.element_size(),
+            (3 + 5 * nrhs) * bc * n,
+            lib_reps=(50, 20) if n <= 32 else (5, 3))
     return out
 
 
@@ -730,13 +842,94 @@ def phase_slice3d(smi):
     parts, _ = breakdown3d(s, out, f)
     log("[slice3d] per part, ms/step (synchronized, 3 steps): "
         + "; ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    # the profiler's captures are taken in a process of their own
+    # (:func:`profile3d`): late in this long one it loses kernel records
+    sub = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "profile3d"],
+        capture_output=True, text=True, timeout=300)
+    for line in sub.stdout.splitlines():
+        if line.startswith("[slice3d]"):
+            log(line)
+    if sub.returncode != 0:
+        raise RuntimeError("the 3D step's profiler captures failed:\n"
+                           + sub.stderr[-4000:])
+    return n
+
+
+def profile3d():
+    """The profiler's view of the 3D slice, from a fresh process
+    (``python3 chip_smoke.py profile3d``, kernels built already): the
+    device kernels of the step that follows phase 6's 1 + 20 steps, those
+    of the velocity column solve alone, and those of its one call of the
+    tridiagonal wrapper, which must be one tiled kernel with two
+    right-hand sides a column and nothing else (no copy of a broadcast
+    coefficient), allocating only its result.  An empty capture fails."""
+    phase_device()
+    dev = torch.device("cuda")
+    s, state0, f, _ = workload3d(dev, torch.float32)
+    nc = s.mesh2d.nc
+    out = s.advance_n(s._step(state0, f, {}), f, {}, STEPS3)
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+
+    def tridiag_rows(rows):
+        return [(cnt, key) for _, cnt, key in rows if "tridiag" in key]
+
     rows = device_rows(lambda: s._step(out, f, {}))
+    if not rows:
+        raise RuntimeError("the profiler saw no device kernel in a step")
     log(f"[slice3d] profiler, one step: {sum(r[1] for r in rows)} device "
         f"kernels, device busy {sum(r[0] for r in rows) / 1e3:.2f} ms; top "
         "by device time:")
     for us, cnt, key in rows[:12]:
         log(f"[slice3d]   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
-    return n
+    if sum(cnt for cnt, _ in tridiag_rows(rows)) != 2:
+        raise AssertionError("the step should launch two tridiagonal "
+                             f"kernels: {tridiag_rows(rows)}")
+    # the velocity column solve alone at the step's shapes (no stress, no
+    # drag): both components share (nc, 3, nz + 1) coefficients
+    Dn = torch.full((nc, 3, NZ3), DEPTH3 / NZ3, dtype=torch.float32,
+                    device=dev)
+    nu = torch.full_like(out["uv_3d"][..., 0], 1e-3)
+    rows = device_rows(lambda: vertical_viscosity_implicit(
+        out["uv_3d"], nu, Dn, s.dt))
+    log(f"[slice3d] the velocity column solve alone: "
+        f"{sum(r[1] for r in rows)} device kernels, "
+        f"{sum(r[0] for r in rows):.1f} us:")
+    for us, cnt, key in rows:
+        log(f"[slice3d]   {us:8.2f} us  x{cnt:<3d} {key[:100]}")
+    tiled = "tridiag_tile_kernel<float, 2>"
+    solve = tridiag_rows(rows)
+    if len(solve) != 1 or solve[0][0] != 1 or tiled not in solve[0][1]:
+        raise AssertionError("the velocity solve should launch the tiled "
+                             "kernel with two right-hand sides a column, "
+                             f"once: {solve}")
+    # and its call of the kernel's wrapper, operands made as vdiff_implicit
+    # makes them: the kernel reads them as they are, so the call is that
+    # one kernel (no copy of a broadcast coefficient) and one allocation,
+    # its result (no scratch)
+    uv = out["uv_3d"].movedim(-1, 0)
+    prof = torch.cat([uv[..., :, 0], uv[..., -1:, 1]], dim=-1)
+    a = torch.rand((nc, 3, NZ3 + 1), dtype=torch.float32, device=dev)
+    neg_a, b = -a, 1.0 + 2.0 * a
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    launches = tridiag.launches()
+    x = tridiag.tridiag_solve(neg_a, b, neg_a, prof)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    launches = tridiag.launches() - launches
+    rows = device_rows(lambda: tridiag.tridiag_solve(neg_a, b, neg_a, prof))
+    log(f"[slice3d] tridiag_solve of {tuple(a.shape)} coefficients and a "
+        f"{tuple(prof.shape)} right-hand side: {launches} launch, {allocs} "
+        "device allocation (the result); device kernels: "
+        + "; ".join(f"x{cnt} {key[:70]} {us:.2f} us"
+                    for us, cnt, key in rows))
+    if (launches, allocs) != (1, 1) or tuple(x.shape) != tuple(prof.shape) \
+            or len(rows) != 1 or rows[0][1] != 1 or tiled not in rows[0][2]:
+        raise AssertionError(
+            "the velocity solve's call of tridiag_solve should be one "
+            "launch of the tiled kernel with two right-hand sides a "
+            "column, no other device kernel, and allocate only its "
+            f"result: {launches} launches, {allocs} allocations, {rows}")
 
 
 def phase_parity3d(nx=NX3, ny=NY3):
@@ -774,6 +967,8 @@ def phase_model_ssprk33(smi):
     st = s._get_state()
     f = s._gather_swe_fields()
     rows = device_rows(lambda: s._advance(0.0, st, f, {}, {}, {}))
+    if not rows:
+        raise RuntimeError("the profiler saw no device kernel in a step")
     log(f"[model2d ssprk33] {STEPS_SSP} steps through iterate(): "
         f"{ms:.2f} ms/step, {n_dofs * STEPS_SSP / t:.4e} DOF*steps/s; "
         f"launches {n} (no kernel on the explicit path); profiler, one "
@@ -918,15 +1113,21 @@ def main():
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
     phase_kernel_ragged()
+    phase_kernel_tridiag_ragged()
     # each kernel at the shapes the port runs it at, the 3D step's first
     ring = [(f"nc={NX3 * NY3 * 2}", phase_kernel_ring(NX3, NY3, True)),
             (f"nc={NX * NY * 2}", phase_kernel_ring(NX, NY, False))]
     cols = NX3 * NY3 * 2 * 3  # (cell, node) columns of the 3D mesh
+    rows = NZ3 + 1
+    # the velocity solve as the step makes it first, then the tracer
+    # solve, the velocity solve with its coefficients copied out to the
+    # right-hand side's shape (no caller; the same bytes as the first
+    # design moved) and a long column (no port shape)
     shapes = {"ring_mv": ring, "block_diag_mv": ring, "tridiag": [
-        (f"{2 * cols}x{NZ3 + 1}", phase_kernel_tridiag(2 * cols, NZ3 + 1)),
-        (f"{cols}x{NZ3 + 1}", phase_kernel_tridiag(cols, NZ3 + 1))]}
-    # a long column: any n, no fallback (no port shape: no yardstick)
-    phase_kernel_tridiag(4096, 300, yardstick=False)
+        (f"{cols}x{rows} x2 shared", phase_kernel_tridiag(cols, rows, 2)),
+        (f"{cols}x{rows}", phase_kernel_tridiag(cols, rows)),
+        (f"{2 * cols}x{rows}", phase_kernel_tridiag(2 * cols, rows)),
+        ("4096x300", phase_kernel_tridiag(4096, 300))]}
     t0 = time.perf_counter()
     n2, s2 = phase_slice2d(smi)
     phase_parity2d()
@@ -976,4 +1177,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["profile3d"]:
+        profile3d()
+    else:
+        main()
