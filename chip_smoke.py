@@ -1,14 +1,23 @@
 """Smoke run of the PyTorch/CUDA port (``thetis_tpu_torch``) on one GPU.
 
-Drives the port's two ported ``bench.py`` workloads through the
-hand-written CUDA kernels, after building them from
-``thetis_tpu_torch/csrc`` and holding each against its plain PyTorch
-version:
+Drives the port's ported ``bench.py`` workloads and the 3D model with its
+turbulence closure through the hand-written CUDA kernels, after building
+them from ``thetis_tpu_torch/csrc`` and holding each against its plain
+PyTorch version:
 
 * the 3D baroclinic channel (``bench.py::build_workload_3d``: periodic
   48x48 mesh, 4,608 columns x 12 layers, 1,036,800 DOF, SSPRK22 ALE,
   f32), which runs the tridiagonal kernel (2 launches per step) and, in
   its barotropic CN solve, the ring matvec and block-Jacobi kernels;
+* the same 3D workload with the GLS turbulence closure (k-epsilon, Canuto
+  A), a wind stress, layers refined toward the surface and the
+  conservation monitors, entered as a user's run script enters it:
+  ``assign_initial_conditions`` and ``iterate()`` with exports (4
+  tridiagonal launches per step: the velocity pair, the tracer, k and
+  psi); the same workload with the explicit subcycled 2D mode
+  (``dt_mode='split'``, no ring kernel); and the Kato-Phillips
+  wind-entrainment column (f64, 4 h through ``iterate()``), whose
+  mixed-layer depth must follow the empirical curve;
 * the 2D semi-implicit CrankNicolson step (the CN workload: 320x160
   rectangle, 102,400 cells, 921,600 DOF, f32): ring matvec and
   block-Jacobi;
@@ -47,7 +56,20 @@ Phases, each printing its lines:
    process (``python3 chip_smoke.py profile3d``), the profiler's device
    kernels of one step and of the velocity column solve alone (one
    tridiagonal kernel, no copy of a coefficient);
-7. 3D parity: one f64 step on the GPU against the CPU plain path;
+7. 3D parity, f64, GPU against the CPU plain path: one step of the plain
+   workload, three of the GLS workload with and without advection of tke
+   and psi;
+12. 3D model with GLS, f32, full size: 1 warm-up + 20 steps through
+    ``iterate()`` with two exports; ms/step beside ``advance_n`` over the
+    same steps (whose final state must be the same bits), launches per
+    step (4 tridiag: one with two right-hand sides, three with one),
+    FGMRES cycles, ranges of tke and the eddy coefficients, the monitors;
+    from a fresh process (``python3 chip_smoke.py profile3d_gls``) the
+    device kernels of one GLS step and of one ``step_columns`` call;
+13. 3D model, ``dt_mode='split'``, f32, full size: 5 steps, the 2D mode
+    as ``M_modesplit`` explicit SSPRK33 substeps, no ring kernel;
+14. Kato-Phillips, f64: 240 steps of 60 s through ``iterate()``; the
+    mixed-layer depth within 10% of 1.05 u* sqrt(t / N0);
 8. 2D model, SSPRK33, f32, full size: 1 warm-up + 30 timed steps through
    ``iterate()``, rates, launches, a profiler count per step;
 9. 2D model, semi-implicit CN, f32, full size: 1 warm-up + 10 timed
@@ -118,6 +140,19 @@ PARITY_RTOL = 1e-9
 MODEL_CN_RTOL = 1e-4
 KERNELS = ("ring_mv", "tridiag", "block_diag_mv")
 STEPS_SSP = 30                          # bench.py:211-212
+#: the GLS run: a wind stress [N/m^2] and layers refined toward the surface
+#: (sigma_j = 1 - (1 - j/nz)^3: 0.93 m on top, 367 m at the bed).  On the
+#: bench's uniform 133 m layers no wind gives a shear whose production
+#: exceeds the dissipation, and tke never leaves its floor.
+GLS_WIND = (0.1, 0.03)
+GLS_STRETCH = 3.0
+GLS_OPTIONS = dict(use_turbulence=True, check_volume_conservation_3d=True,
+                   check_temperature_conservation=True,
+                   check_temperature_overshoot=True)
+# the volume is a host sum of f32 elevations against a 4e15 m^3 basin
+VOLUME_RTOL_F32 = 1e-6
+# Kato-Phillips (tests/test_katophillips.py of the reference)
+KP_DEPTH, KP_LAYERS, KP_US, KP_N0 = 50.0, 20, 0.01, 0.01
 NX_PARITY, NY_PARITY = 80, 40           # phase 11's CPU-affordable mesh
 #: FlowSolver2d configurations: (stepper, semi-implicit, dt in hmin/c,
 #: NewtonParameters keywords, the PC the CFL policy should pick).  The
@@ -280,9 +315,12 @@ def workload(device, dtype, nx=NX, ny=NY):
     return mesh, eq, st, sol, fields
 
 
-def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3):
+def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3, options=None,
+               stretch=None):
     """The bench's 3D baroclinic channel (bench.py:112-177) on the port,
-    entered as the bench enters the reference."""
+    entered as the bench enters the reference; ``options`` are set over
+    the bench's, ``stretch`` refines the layers toward the surface (the
+    temperature is then set on the refined grid's own nodes)."""
     physical_constants["rho0"] = 1020.0
     mesh2d = PeriodicRectangleMesh(nx, ny, L3, L3, direction="x",
                                    device=device, dtype=dtype)
@@ -290,7 +328,8 @@ def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3):
     f0, beta = beta_plane_coriolis_params(37.5)
     cor = f0 + beta * (mesh2d.coords_np[:, 1] - L3 / 2)  # CG1 field
     s = FlowSolver(mesh2d, torch.tensor(DEPTH3, dtype=dtype, device=device),
-                   nz)
+                   nz, extrude_options=(None if stretch is None else
+                                        dict(z_stretch_fact=stretch)))
     s.options.update(dict(
         timestepper_type="SSPRK22",
         solve_salinity=False,
@@ -308,12 +347,16 @@ def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3):
         timestep=300.0,
         simulation_export_time=24 * 3600.0,
         simulation_end_time=24 * 3600.0,
+        no_exports=True,
     ))
+    s.options.update(options or {})
     s.initialize()
     x = mesh2d.coords_np[mesh2d.cells_np]  # (nc, 3, 2) P1DG nodes
     y_pert = 0.1 * L3 * np.sin(2 * np.pi * x[..., 0] / L3)
     t2d = 25.0 - 5e-6 * (x[..., 1] + y_pert - L3 / 2)
     sigma = np.linspace(-DEPTH3, 0.0, nz + 1)
+    if stretch is not None:
+        sigma = -DEPTH3 * (1.0 - s.extruded.sigma_np)
     z_nodes = np.stack([sigma[:-1], sigma[1:]], axis=-1)
     temp0 = t2d[:, :, None, None] + 8.2e-3 * (z_nodes[None, None]
                                               + DEPTH3 / 2)
@@ -364,12 +407,57 @@ def model2d(config, device, dtype, nx=NX, ny=NY, mesh=None):
     return s, t_setup
 
 
-def iterate_steps(s, n):
+def workload3d_gls(device, dtype, nx=NX3, ny=NY3, advect=False):
+    """The 3D workload with the GLS closure (k-epsilon, Canuto A: the
+    defaults), a wind stress, surface-refined layers and the monitors."""
+    opts = dict(GLS_OPTIONS, use_turbulence_advection=advect,
+                wind_stress=np.array(GLS_WIND))
+    return workload3d(device, dtype, nx, ny, options=opts,
+                      stretch=GLS_STRETCH)
+
+
+def kato_phillips(device, dtype, hours=4):
+    """The Kato-Phillips wind-entrainment column: 3x2 periodic cells, 20
+    layers over 50 m, dt 60 s, salt stratification N0 = 0.01 1/s, friction
+    velocity u* = 0.01 m/s, linear equations, no bottom friction, GLS
+    k-epsilon.  Returns the solver, ready for ``iterate()``, and the
+    interface heights."""
+    g = float(physical_constants["g_grav"])
+    rho0 = 1000.0  # the package's own value; the bench sets 1020
+    mesh2d = PeriodicRectangleMesh(3, 2, 7500.0, 5000.0, direction="x",
+                                   device=device, dtype=dtype)
+    s = FlowSolver(mesh2d, KP_DEPTH, KP_LAYERS)
+    s.options.update(dict(
+        timestep=60.0, simulation_export_time=3600.0,
+        simulation_end_time=hours * 3600.0 - 1e-9, no_exports=True,
+        use_nonlinear_equations=False, solve_salinity=True,
+        solve_temperature=False, constant_temperature=10.0,
+        use_implicit_vertical_diffusion=True, use_bottom_friction=False,
+        use_turbulence=True, use_baroclinic_formulation=True,
+        vertical_viscosity=1.3e-6, vertical_diffusivity=1.4e-7,
+        wind_stress=np.array([rho0 * KP_US**2, 0.0])))
+    # rho' = beta (S - S_ref): dS/dz = -N0^2 rho0 / (g beta)
+    salt_grad = -(KP_N0**2) * rho0 / g / 0.77
+    z_if = -KP_DEPTH * (1.0 - np.linspace(0.0, 1.0, KP_LAYERS + 1))
+    s_if = 35.0 + salt_grad * z_if
+    salt = np.broadcast_to(np.stack([s_if[:-1], s_if[1:]], axis=-1),
+                           (mesh2d.nc, 3, KP_LAYERS, 2))
+    bench_rho0 = physical_constants["rho0"]
+    physical_constants["rho0"] = rho0  # read while the solver is built
+    try:
+        s.assign_initial_conditions(
+            salt=torch.as_tensor(salt.copy(), dtype=dtype, device=device))
+    finally:
+        physical_constants["rho0"] = bench_rho0
+    return s, z_if
+
+
+def iterate_steps(s, n, exports=1):
     """``n`` more steps through ``iterate()``: the end time moves on by
-    ``n`` dt and the export interval is set so that they run as one
-    loop."""
+    ``n`` dt and the export interval is set so that they run as
+    ``exports`` loops of equal length."""
     o = s.options
-    o.simulation_export_time = n * s.dt
+    o.simulation_export_time = n // exports * s.dt
     o.simulation_end_time = s.simulation_time + n * s.dt
     s.iterate()
 
@@ -842,18 +930,24 @@ def phase_slice3d(smi):
     parts, _ = breakdown3d(s, out, f)
     log("[slice3d] per part, ms/step (synchronized, 3 steps): "
         + "; ".join(f"{k} {v:.2f}" for k, v in parts.items()))
-    # the profiler's captures are taken in a process of their own
-    # (:func:`profile3d`): late in this long one it loses kernel records
+    run_profile("profile3d", "[slice3d]")
+    return n, ms
+
+
+def run_profile(mode, tag):
+    """The profiler's captures of ``mode`` (``profile3d``,
+    ``profile3d_gls``) in a process of their own: late in this long one
+    the profiler loses kernel records.  Its ``tag`` lines are passed on; a
+    failure there fails here."""
     sub = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "profile3d"],
+        [sys.executable, os.path.abspath(__file__), mode],
         capture_output=True, text=True, timeout=300)
     for line in sub.stdout.splitlines():
-        if line.startswith("[slice3d]"):
+        if line.startswith(tag):
             log(line)
     if sub.returncode != 0:
-        raise RuntimeError("the 3D step's profiler captures failed:\n"
+        raise RuntimeError(f"the profiler captures of {mode} failed:\n"
                            + sub.stderr[-4000:])
-    return n
 
 
 def profile3d():
@@ -933,20 +1027,256 @@ def profile3d():
 
 
 def phase_parity3d(nx=NX3, ny=NY3):
-    cpu = workload3d(torch.device("cpu"), torch.float64, nx, ny)
-    gpu = workload3d(torch.device("cuda"), torch.float64, nx, ny)
+    """f64 on the GPU (kernels) against the CPU (plain path): one step of
+    the plain workload, then three of the GLS workload without and with
+    advection of tke and psi (every state key, the lagged eddy
+    coefficients included).  Three, because the closure starts on its
+    floors: the first step moves the eddy coefficients only, and a uniform
+    tke and psi have nothing to advect."""
+    cases = {"": (workload3d, 1),
+             " gls": (workload3d_gls, 3),
+             " gls advected": (
+                 lambda *a: workload3d_gls(*a, advect=True), 3)}
+    for tag, (make, nsteps) in cases.items():
+        cpu = make(torch.device("cpu"), torch.float64, nx, ny)
+        gpu = make(torch.device("cuda"), torch.float64, nx, ny)
+        reset_counts()
+        a, t_gpu = sync_time(
+            lambda: gpu[0].advance_n(gpu[1], gpu[2], {}, nsteps))
+        n = counts()
+        if min(n.values()) == 0 or \
+                n["tridiag"] != (4 if tag else 2) * nsteps:
+            raise AssertionError(f"the f64 GPU 3D{tag} steps' launches: {n}")
+        t0 = time.perf_counter()
+        b = cpu[0].advance_n(cpu[1], cpu[2], {}, nsteps)
+        t_cpu = time.perf_counter() - t0
+        if sorted(a) != sorted(b) or ("nu_v_3d" in b) != bool(tag):
+            raise AssertionError(f"parity3d{tag}: state keys {sorted(a)}")
+        if tag and not float(b["tke_3d"].max()) > 2e-6:
+            raise AssertionError(f"parity3d{tag}: tke_3d still on its floor")
+        errs = compare(f"parity3d{tag}", a, b, PARITY_RTOL)
+        log(f"[parity3d{tag}] f64 {nx}x{ny}x{NZ3}, {nsteps} step(s), GPU "
+            f"kernels {t_gpu:.2f} s vs CPU plain {t_cpu:.2f} s: max|diff|/max "
+            f"{errs} <= {PARITY_RTOL:g} x max: ok")
+
+
+def field_range(v):
+    return f"{float(v.min()):.3e}..{float(v.max()):.3e}"
+
+
+def solve_shapes(s, state, f):
+    """One more step from ``state`` with the column solves' calls of the
+    tridiagonal wrapper recorded: the number of right-hand sides that share
+    each coefficient column, call by call."""
+    from thetis_tpu_torch.equations import turbulence
+
+    seen = []
+    wrapped = turbulence.tridiag_solve
+
+    def recorder(dl, dd, du, rhs):
+        seen.append(rhs.numel() // dd.numel())
+        return wrapped(dl, dd, du, rhs)
+
+    turbulence.tridiag_solve = recorder
+    try:
+        s._step(state, f, {})
+    finally:
+        turbulence.tridiag_solve = wrapped
+    return seen
+
+
+def phase_model3d_gls(smi, plain_ms):
+    """The 3D model with the GLS closure as a user's run script has it:
+    options, ``assign_initial_conditions``, ``iterate()`` with exports and
+    the conservation monitors; then the same steps through ``advance_n``
+    from the same start, which must end on the same bits."""
+    dev = torch.device("cuda")
+    s, state0, f, n_dofs = workload3d_gls(dev, torch.float32)
+    n_dofs += 2 * s.mesh2d.nc * 3 * NZ3 * 2  # tke, psi
+    go = s.gls.options
+    start = {k: v.clone() for k, v in state0.items()}
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    top = float(s.extruded.sigma_np[-1] - s.extruded.sigma_np[-2]) * DEPTH3
+    log(f"[model3d gls] f32 {NX3}x{NY3}x{NZ3}, {go.closure_name} / "
+        f"{go.stability_function_name}, wind {GLS_WIND} N/m^2, top layer "
+        f"{top:.2f} m: {n_dofs} DOF, dt={s.dt:g} s; warm-up step through "
+        f"iterate() {t_warm * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    a, t_gpu = sync_time(lambda: gpu[0]._step(gpu[1], gpu[2], {}))
+    _, t = sync_time(lambda: iterate_steps(s, STEPS3, exports=2))
     n = counts()
-    if min(n.values()) == 0:
-        raise AssertionError(f"the f64 GPU 3D step missed a kernel: {n}")
-    t0 = time.perf_counter()
-    b = cpu[0]._step(cpu[1], cpu[2], {})
-    t_cpu = time.perf_counter() - t0
-    errs = compare("parity3d", a, b, PARITY_RTOL)
-    log(f"[parity3d] f64 {nx}x{ny}x{NZ3} one step, GPU kernels {t_gpu:.2f} s"
-        f" vs CPU plain {t_cpu:.2f} s: max|diff|/max {errs} <= "
-        f"{PARITY_RTOL:g} x max: ok")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = s._get_state()
+    ms = t / STEPS3 * 1e3
+    if (s.iteration, s.i_export) != (STEPS3 + 1, 3):
+        raise AssertionError(f"iterate(): {s.iteration} steps, "
+                             f"{s.i_export} exports")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(start[k].shape):
+            raise AssertionError(f"{k} shape {tuple(v.shape)}")
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite {k} after {STEPS3 + 1} steps")
+    if not bool(torch.isfinite(s.fields.w_3d.data).all()):
+        raise AssertionError("non-finite w_3d from _set_state")
+    if n["tridiag"] != 4 * STEPS3:
+        raise AssertionError(f"tridiag launched {n['tridiag']} times in "
+                             f"{STEPS3} steps, not 4 per step")
+    if n["ring_mv"] == 0 or n["block_diag_mv"] == 0:
+        raise AssertionError(f"the barotropic solve missed a kernel: {n}")
+    if not float(out["tke_3d"].max()) > go.k_min:
+        raise AssertionError("tke_3d never left its floor")
+    if not float(out["nu_v_3d"].max()) > go.visc_min:
+        raise AssertionError("nu_v_3d never left its floor")
+    monitors = {k: cb() for k, cb in s.callbacks["export"].items()}
+    if sorted(monitors) != ["temp_3d mass", "temp_3d overshoot", "volume3d"]:
+        raise AssertionError(f"monitors {sorted(monitors)}")
+    if not abs(monitors["volume3d"][1]) <= VOLUME_RTOL_F32:
+        raise AssertionError(f"volume relative error {monitors['volume3d']}")
+    per = {k: v / STEPS3 for k, v in n.items()}
+    cycles = n["block_diag_mv"] / STEPS3 / RESTART3
+    log(f"[model3d gls] {STEPS3} steps through iterate(), 2 exports: "
+        f"{ms:.2f} ms/step, {n_dofs * STEPS3 / t:.4e} DOF*steps/s (the plain "
+        f"step in this run: {plain_ms:.2f} ms/step, x{ms / plain_ms:.2f}); "
+        f"launches {n} = per step {per} ({cycles:.2f} FGMRES cycles of "
+        f"{RESTART3}); peak memory {peak:.2f} GiB; every state field and "
+        "w_3d finite")
+    log(f"[model3d gls] tke_3d {field_range(out['tke_3d'])} (k_min "
+        f"{go.k_min:g}), psi_3d {field_range(out['psi_3d'])}, nu_v_3d "
+        f"{field_range(out['nu_v_3d'])} (visc_min {go.visc_min:g}), mu_v_3d "
+        f"{field_range(out['mu_v_3d'])}, max|uv_3d| "
+        f"{float(out['uv_3d'].abs().max()):.4e} m/s, temp "
+        f"{field_range(out['temp_3d'])} C")
+    log("[model3d gls] monitors after the last export: volume3d rel. error "
+        f"{monitors['volume3d'][1]:.3e} (<= {VOLUME_RTOL_F32:g}), temp_3d "
+        f"mass rel. error {monitors['temp_3d mass'][1]:.3e}, temp_3d "
+        f"undershoot / overshoot {monitors['temp_3d overshoot'][2]:.3e} / "
+        f"{monitors['temp_3d overshoot'][3]:.3e} C; card: {smi}")
+    # the same steps without the lifecycle, from the same start
+    warm = s.advance_n(start, f, {}, 1)
+    again, t_adv = sync_time(lambda: s.advance_n(warm, f, {}, STEPS3))
+    diff = [k for k in out if not torch.equal(again[k], out[k])]
+    if diff or sorted(again) != sorted(out):
+        raise AssertionError("iterate() and advance_n over the same "
+                             f"{STEPS3 + 1} steps differ in {diff}")
+    log(f"[model3d gls] advance_n over the same steps: "
+        f"{t_adv / STEPS3 * 1e3:.2f} ms/step (iterate() x"
+        f"{t / t_adv:.3f}); final state bit-equal on all {len(out)} keys")
+    nrhs = solve_shapes(s, out, f)
+    if nrhs != [2, 1, 1, 1]:
+        raise AssertionError("a GLS step's column solves should be one with "
+                             "two right-hand sides (velocity) and three with "
+                             f"one (tracer, k, psi): {nrhs}")
+    log(f"[model3d gls] right-hand sides per coefficient column, solve by "
+        f"solve: {nrhs} (velocity pair, temperature, k, psi)")
+    run_profile("profile3d_gls", "[model3d gls profile]")
+    return n
+
+
+def profile3d_gls():
+    """The profiler's view of the GLS step, from a fresh process (kernels
+    built already): the device kernels of the step that follows 1 + 20
+    steps, and those of one ``step_columns`` call on that state.  Records,
+    apart from this: an empty capture fails."""
+    phase_device()
+    dev = torch.device("cuda")
+    s, state0, f, _ = workload3d_gls(dev, torch.float32)
+    out = s.advance_n(state0, f, {}, STEPS3 + 1)
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    tag = "[model3d gls profile]"
+
+    def show(title, rows, top):
+        if not rows:
+            raise RuntimeError(f"the profiler saw no device kernel in {title}")
+        solves = [(cnt, key) for _, cnt, key in rows if "tridiag" in key]
+        log(f"{tag} {title}: {sum(r[1] for r in rows)} device kernels, "
+            f"device busy {sum(r[0] for r in rows) / 1e3:.3f} ms; tridiag "
+            "kernels: " + "; ".join(
+                f"x{c} {k.split('::')[-1][:60]}" for c, k in solves)
+            + "; top by device time:")
+        for us, cnt, key in rows[:top]:
+            log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
+
+    show("one GLS step", device_rows(lambda: s._step(out, f, {})), 12)
+    geom = s.asm3d.layer_geometry(
+        s.extruded.z_interfaces(s.bathy_cell, out["elev"]))
+    uv = out["uv_3d"] + out["uv"][:, :, None, None, :]
+    rho = s.density_solver.solve(out["salt_3d"], out["temp_3d"])
+    m2, n2 = s.gls.compute_shear_buoy_freq(uv, rho, geom,
+                                           rho0=physical_constants["rho0"])
+    show("one step_columns call", device_rows(lambda: s.gls.step_columns(
+        out["tke_3d"], out["psi_3d"], m2, n2, out["nu_v_3d"],
+        out["mu_v_3d"], geom["Delta_nodes"], s.dt)), 6)
+    show("one eddy_coefficients call", device_rows(
+        lambda: s.gls.eddy_coefficients(out["tke_3d"], out["psi_3d"], m2,
+                                        n2)), 4)
+
+
+def phase_model3d_split(smi):
+    """``dt_mode='split'``: the 2D mode as ``M_modesplit`` explicit SSPRK33
+    substeps in place of the CN solve, so no ring kernel is launched."""
+    dev = torch.device("cuda")
+    s, state0, f, n_dofs = workload3d(dev, torch.float32,
+                                      options=dict(dt_mode="split"))
+    want_m = math.ceil(300.0 / 10.0)  # ceil(dt / timestep_2d), its default
+    if (s.M_modesplit, type(s.swe_stepper).__name__) != (want_m, "SSPRK33") \
+            or abs(s.dt_2d * want_m - s.dt) > 1e-9:
+        raise AssertionError(f"split: M_modesplit {s.M_modesplit}, dt_2d "
+                             f"{s.dt_2d}, {type(s.swe_stepper).__name__}")
+    nsteps = 5
+    state, t_warm = sync_time(lambda: s._step(state0, f, {}))
+    reset_counts()
+    out, t = sync_time(lambda: s.advance_n(state, f, {}, nsteps))
+    n = counts()
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"split: non-finite {k}")
+    if (n["ring_mv"], n["block_diag_mv"], n["tridiag"]) != (0, 0,
+                                                            2 * nsteps):
+        raise AssertionError(f"split: launches {n}")
+    log(f"[model3d split] f32 {NX3}x{NY3}x{NZ3}, dt={s.dt:g} s, M_modesplit "
+        f"{s.M_modesplit} explicit SSPRK33 substeps of {s.dt_2d:g} s (2D "
+        f"wave bound {s.compute_dt_2d(0.1):.2f} s): warm-up "
+        f"{t_warm * 1e3:.1f} ms; {nsteps} steps {t / nsteps * 1e3:.2f} "
+        f"ms/step; launches {n}; max|elev| "
+        f"{float(out['elev'].abs().max()):.4e} m, max|uv| "
+        f"{float(out['uv'].abs().max()):.4e} m/s; every state field finite; "
+        f"card: {smi}")
+    return n
+
+
+def phase_katophillips(smi):
+    """The reference's GLS validation run, f64, through ``iterate()``: the
+    mixed-layer depth (the lowest point where tke > 1e-5 m^2/s^2, on a
+    grid 8 times finer than the layers) against the empirical
+    1.05 u* sqrt(t / N0), to the reference test's 10%."""
+    s, z_if = kato_phillips(torch.device("cuda"), torch.float64)
+    reset_counts()
+    _, t = sync_time(s.iterate)
+    n = counts()
+    if (s.iteration, s.i_export) != (240, 4) or n["tridiag"] != 4 * 240:
+        raise AssertionError(f"katophillips: {s.iteration} steps, "
+                             f"{s.i_export} exports, launches {n}")
+    tke = s.fields.tke_3d.data.cpu().numpy()
+    if not np.isfinite(tke).all():
+        raise AssertionError("katophillips: non-finite tke")
+    prof = np.concatenate([tke[0, 0, :, 0], tke[0, 0, -1:, 1]])
+    zfine = np.linspace(z_if[0], z_if[-1], KP_LAYERS * 8)
+    mixed = np.interp(zfine, z_if, prof) > 1e-5
+    if not mixed.any():
+        raise AssertionError("katophillips: no turbulent layer developed")
+    depth = -zfine[mixed].min()
+    target = 1.05 * KP_US * math.sqrt(s.simulation_time / KP_N0)
+    rel = (depth - target) / target
+    if abs(rel) >= 0.10:
+        raise AssertionError(f"katophillips: mixed layer {depth:.2f} m "
+                             f"against {target:.2f} m")
+    log(f"[katophillips] f64 3x2x{KP_LAYERS}, 240 steps of {s.dt:g} s "
+        f"through iterate(), 4 exports: {t:.1f} s, {t / 240 * 1e3:.1f} "
+        f"ms/step; launches {n}; mixed-layer depth {depth:.2f} m against "
+        f"1.05 u* sqrt(t/N0) = {target:.2f} m ({rel:+.1%}, bound 10%); "
+        f"surface tke {prof[-1]:.3e} m^2/s^2, max nu_v "
+        f"{float(s.fields.nu_v_3d.data.max()):.3e} m^2/s; card: {smi}")
+    return n
 
 
 def phase_model_ssprk33(smi):
@@ -1133,7 +1463,7 @@ def main():
     phase_parity2d()
     log(f"[phases 4-5] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    n3 = phase_slice3d(smi)
+    n3, ms3 = phase_slice3d(smi)
     phase_parity3d()
     log(f"[phases 6-7] {time.perf_counter() - t0:.1f} s")
     nm = {k: 0 for k in KERNELS}
@@ -1148,6 +1478,15 @@ def main():
     t0 = time.perf_counter()
     phase_model_parity()
     log(f"[phase_model_parity] {time.perf_counter() - t0:.1f} s")
+    ng = {k: 0 for k in KERNELS}
+    for phase, args in ((phase_model3d_gls, (smi, ms3)),
+                        (phase_model3d_split, (smi,)),
+                        (phase_katophillips, (smi,))):
+        t0 = time.perf_counter()
+        n = phase(*args)
+        for k in KERNELS:
+            ng[k] += n[k]
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -1155,9 +1494,10 @@ def main():
         main_shape = shapes[k][0][1][(k, torch.float32)]
         row = {"name": k, "route": "cuda", "source": SOURCES[k][0],
                "replaces": SOURCES[k][1],
-               "launches": n3[k] + n2[k] + nm[k],
+               "launches": n3[k] + n2[k] + nm[k] + ng[k],
                "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k],
-                                    "flowsolver2d": nm[k]},
+                                    "flowsolver2d": nm[k],
+                                    "flowsolver3d_gls": ng[k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1179,5 +1519,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["profile3d"]:
         profile3d()
+    elif sys.argv[1:] == ["profile3d_gls"]:
+        profile3d_gls()
     else:
         main()

@@ -203,26 +203,36 @@ def test_state3d_interop_roundtrip(run):
         state3d_from_numpy(s, "cpu", F64)
 
 
+#: options that select code the port does not have, with the ROADMAP item
+#: the error must name
 UNPORTED = {
-    "leapfrog": dict(timestepper_type="LeapFrogAM3"),
-    "gls": dict(use_turbulence=True),
-    "smagorinsky": dict(use_smagorinsky_viscosity=True),
-    "split_dt": dict(dt_mode="split"),
-    "automatic_dt": dict(use_automatic_timestep=True),
-    "fixed_mesh": dict(use_ale_moving_mesh=False),
-    "quadratic_head": dict(use_quadratic_pressure=True),
-    "quadratic_density": dict(use_quadratic_density=True),
-    "no_modesplit": dict(use_modesplit_2d=False),
-    "tracer_source": dict(temperature_source_3d=1e-6),
+    "leapfrog": (dict(timestepper_type="LeapFrogAM3"), "A7"),
+    "smagorinsky": (dict(use_smagorinsky_viscosity=True), "A7"),
+    "fixed_mesh": (dict(use_ale_moving_mesh=False), "A7"),
+    "quadratic_head": (dict(use_quadratic_pressure=True), "A7"),
+    "quadratic_density": (dict(use_quadratic_density=True), "A7"),
+    "no_modesplit": (dict(use_modesplit_2d=False), "A7"),
+    "tracer_source": (dict(temperature_source_3d=1e-6), "A7"),
+    "viscosity_field": (dict(horizontal_viscosity=np.full(
+        (NX * NY * 2, 3), 40.0)), "A7c"),
+    "exports": (dict(no_exports=False), "A10"),
+    "bc_3d": (None, "A7"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED) + ["bc_3d"])
+@pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_options_raise(name):
-    _, ts = port_solver(UNPORTED.get(name))
+    options, item = UNPORTED[name]
+    _, ts = port_solver(options)
     if name == "bc_3d":
         ts.bnd_functions["temp"] = {1: {"value": 10.0}}
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
+        ts.initialize()
+
+
+def test_unknown_dt_mode_raises():
+    _, ts = port_solver(dict(dt_mode="4d"))
+    with pytest.raises(ValueError, match="dt_mode"):
         ts.initialize()
 
 

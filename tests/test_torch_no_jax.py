@@ -37,6 +37,12 @@ MODEL2D = ("model.flowsolver2d", "model.callback", "solvers.newton",
            "timeintegration.steppers", "timeintegration.rungekutta",
            "utils.constant", "utils.log", "utils.profiling",
            "fem.functionspace", "interop")
+#: the 3D model's modules, the turbulence closure among them
+MODEL3D = ("model.flowsolver3d", "equations.turbulence",
+           "equations.stability_functions", "equations.momentum_3d",
+           "equations.tracer_3d", "equations.utility3d", "equations.eos",
+           "equations.limiter", "fem.assembly3d", "mesh.extruded",
+           "kernels.tridiag", "kernels.ringmv")
 
 
 def test_import_pulls_in_no_jax():
@@ -46,11 +52,12 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    assert int(lines[0]) >= 45, out.stdout  # every submodule was imported
+    assert int(lines[0]) >= 46, out.stdout  # every submodule was imported
     bad = lines[1]
     assert bad == "", f"port imported {bad}"
     names = set(lines[2].split(","))
-    missing = [m for m in MODEL2D if f"thetis_tpu_torch.{m}" not in names]
+    missing = [m for m in MODEL2D + MODEL3D
+               if f"thetis_tpu_torch.{m}" not in names]
     assert not missing, missing
 
 

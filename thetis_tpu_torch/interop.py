@@ -11,13 +11,26 @@ import torch
 
 __all__ = ["state_from_numpy", "state_to_numpy", "fields_from_numpy",
            "fields_to_numpy", "bathymetry_from_numpy", "bathymetry_to_numpy",
-           "state3d_from_numpy", "state3d_to_numpy",
+           "state3d_from_numpy", "state3d_to_numpy", "state3d_keys",
            "flowsolver3d_from_numpy", "flowsolver2d_from_reference"]
 
 _STATE_KEYS = ("elev", "uv")
-#: the 3D step's state dict (``FlowSolver._get_state``)
+#: the 3D step's state dict (``FlowSolver._get_state``) without
+#: turbulence, and the lagged eddy coefficients it gains with it
 STATE3D_KEYS = ("elev", "psi_3d", "salt_3d", "split_residual", "temp_3d",
                 "tke_3d", "uv", "uv_3d")
+STATE3D_TURBULENCE_KEYS = ("mu_v_3d", "nu_v_3d")
+
+
+def state3d_keys(options=None):
+    """The sorted keys of the 3D step state under ``options`` (a
+    ``ModelOptions3d``, a dict of options, or None for the defaults)."""
+    if isinstance(options, dict):
+        turb = options.get("use_turbulence", False)
+    else:
+        turb = getattr(options, "use_turbulence", False)
+    return tuple(sorted(STATE3D_KEYS
+                        + (STATE3D_TURBULENCE_KEYS if turb else ())))
 
 
 def _to_tensor(v, device, dtype):
@@ -64,12 +77,15 @@ def bathymetry_to_numpy(b):
     return float(b) if np.isscalar(b) else _to_numpy(b)
 
 
-def state3d_from_numpy(d, device, dtype):
+def state3d_from_numpy(d, device, dtype, options=None):
     """The 3D step state (``uv`` (nc,3,2), ``elev`` (nc,3), ``uv_3d``
     (nc,3,nz,2,2), ``salt_3d``/``temp_3d``/``tke_3d``/``psi_3d``
-    (nc,3,nz,2), ``split_residual`` (nc,3,2)) as numpy arrays -> tensors."""
-    if tuple(sorted(d)) != STATE3D_KEYS:
-        raise KeyError(f"3D state needs keys {STATE3D_KEYS}, got "
+    (nc,3,nz,2), ``split_residual`` (nc,3,2) and, when ``options`` has
+    ``use_turbulence``, ``nu_v_3d``/``mu_v_3d`` (nc,3,nz,2)) as numpy
+    arrays -> tensors.  Any other key set is refused."""
+    want = state3d_keys(options)
+    if tuple(sorted(d)) != want:
+        raise KeyError(f"3D state needs keys {want}, got "
                        f"{tuple(sorted(d))}")
     return {k: _to_tensor(v, device, dtype) for k, v in d.items()}
 
@@ -91,18 +107,25 @@ def _option_value(v, device, dtype):
     """A reference option value in the port's terms: arrays (numpy or the
     reference's device arrays, read through ``np.asarray``) and Function
     data become tensors, Constants and NewtonParameters the port's own
-    classes; plain Python values pass through."""
+    classes, a ``GLSModelOptions`` the port's own by its attributes (all
+    plain numbers, switches and names); plain Python values pass
+    through."""
+    from .equations.turbulence import GLSModelOptions
     from .solvers.newton import NewtonParameters
     from .utils.constant import Constant
 
     if v is None or isinstance(v, (bool, int, float, str, dict, list,
                                    datetime.datetime)):
         return v
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
     kind = type(v).__name__
     if kind == "Constant":
         return Constant(np.asarray(v))
     if kind == "NewtonParameters":
         return NewtonParameters(**{k: getattr(v, k) for k in _NEWTON_FIELDS})
+    if kind == "GLSModelOptions":
+        return GLSModelOptions(**vars(v))
     if kind == "Function":
         return _to_tensor(np.asarray(v.data), device, dtype)
     if hasattr(v, "__array__"):
@@ -157,14 +180,15 @@ def flowsolver3d_from_numpy(mesh2d, bathymetry, n_layers, options,
     """The port's :class:`~thetis_tpu_torch.model.flowsolver3d.FlowSolver`
     from numpy inputs, on ``mesh2d``'s device and dtype: ``options`` is
     the dict given to ``options.update`` (array values, such as a CG1
-    Coriolis field, become tensors), ``bathymetry`` a scalar or an array.
-    The reference's solver is built from the same dict with its arrays
-    passed through ``jnp.asarray``, so both compute the same step."""
+    Coriolis field, become tensors; a reference ``GLSModelOptions`` or
+    ``NewtonParameters`` the port's own), ``bathymetry`` a scalar or an
+    array.  The reference's solver is built from the same dict with its
+    arrays passed through ``jnp.asarray``, so both compute the same
+    step."""
     from .model.flowsolver3d import FlowSolver
 
     dev, dt = mesh2d.device, mesh2d.dtype
-    opts = {k: (_to_tensor(v, dev, dt) if isinstance(v, np.ndarray) else v)
-            for k, v in options.items()}
+    opts = {k: _option_value(v, dev, dt) for k, v in options.items()}
     return FlowSolver(mesh2d, bathymetry_from_numpy(bathymetry, dev, dt),
                       n_layers, options=opts,
                       extrude_options=extrude_options)

@@ -1,21 +1,26 @@
 """Diagnostic callback framework (port of the parts of
-``thetis_tpu/model/callback.py`` that the 2D model runs).
+``thetis_tpu/model/callback.py`` that the 2D and 3D models run).
 
 Mirrors the reference's ``thetis/callback.py``: a ``CallbackManager`` with
 'export'/'timestep' evaluation modes (ref L14-59), a ``DiagnosticCallback``
-base (name, variable_names, ``__call__``, ``message_str``; ref L162-302)
-and the volume conservation callback (ref L335-350).
+base (name, variable_names, ``__call__``, ``message_str``; ref L162-302),
+the 2D and 3D volume conservation callbacks (ref L335-364), the 3D tracer
+mass callback (ref L367-382) and the overshoot callbacks (ref L434-484).
+A callback reads its values on the host, once per evaluation.
 
 Not ported yet: the HDF5 time series (``export_to_hdf5=True`` raises,
-ROADMAP A10) and the tracer, overshoot, detector and time-series
-callbacks (A8/A10).
+ROADMAP A10) and the 2D tracer mass, detector and time-series callbacks
+(A8/A10).
 """
 from collections import OrderedDict
 
 from ..utils.log import print_output
 
 __all__ = ["CallbackManager", "DiagnosticCallback",
-           "ScalarConservationCallback", "VolumeConservation2DCallback"]
+           "ScalarConservationCallback", "VolumeConservation2DCallback",
+           "VolumeConservation3DCallback",
+           "TracerMassConservation3DCallback", "MinMaxConservationCallback",
+           "TracerOvershootCallBack"]
 
 
 class CallbackManager(OrderedDict):
@@ -104,3 +109,64 @@ class VolumeConservation2DCallback(ScalarConservationCallback):
             return solver_obj.compute_volume_2d()
 
         super().__init__(vol, solver_obj, **kwargs)
+
+
+class VolumeConservation3DCallback(ScalarConservationCallback):
+    """total 3D water volume (ref ``callback.py:353-364``)."""
+
+    name = "volume3d"
+    variable_names = ["integral", "relative_difference"]
+
+    def __init__(self, solver_obj, **kwargs):
+        def vol():
+            return solver_obj.compute_volume_3d()
+
+        super().__init__(vol, solver_obj, **kwargs)
+
+
+class TracerMassConservation3DCallback(ScalarConservationCallback):
+    """3D tracer mass (ref ``callback.py:367-382``)."""
+
+    def __init__(self, tracer_name, solver_obj, **kwargs):
+        self.name = tracer_name + " mass"
+        self.variable_names = ["integral", "relative_difference"]
+
+        def mass():
+            return solver_obj.compute_tracer_mass_3d(tracer_name)
+
+        super().__init__(mass, solver_obj, **kwargs)
+
+
+class MinMaxConservationCallback(DiagnosticCallback):
+    """overshoot tracking (ref ``callback.py:434-463``)."""
+
+    variable_names = ["min_value", "max_value", "undershoot", "overshoot"]
+
+    def __init__(self, minmax_callback, solver_obj, **kwargs):
+        self.minmax_callback = minmax_callback
+        self.initial_value = None
+        super().__init__(solver_obj, array_dim=1, **kwargs)
+
+    def __call__(self):
+        value = self.minmax_callback()
+        if self.initial_value is None:
+            self.initial_value = value
+        overshoot = max(value[1] - self.initial_value[1], 0.0)
+        undershoot = min(value[0] - self.initial_value[0], 0.0)
+        return value[0], value[1], undershoot, overshoot
+
+    def message_str(self, *args):
+        return f"{self.name} overshoots {args[2]:g} {args[3]:g}"
+
+
+class TracerOvershootCallBack(MinMaxConservationCallback):
+    """tracer overshoot (ref ``callback.py:466-484``)."""
+
+    def __init__(self, tracer_name, solver_obj, **kwargs):
+        self.name = tracer_name + " overshoot"
+
+        def minmax():
+            d = solver_obj.fields[tracer_name].data
+            return float(d.min()), float(d.max())
+
+        super().__init__(minmax, solver_obj, **kwargs)

@@ -13,20 +13,26 @@ forced by the lagged ``split_residual`` -> ALE geometry and mesh velocity
 -> SSPRK22 ALE stages of uv_3d and of the packed tracers (each with the
 uniform "ones" consistency field) -> implicit vertical mixing (two
 tridiagonal launches: both velocity components, then each tracer) ->
-depth-average coupling.  A time loop is a Python loop over ``_step``
-(:meth:`FlowSolver.advance_n`), where the reference scans it.
+with ``use_turbulence`` the GLS closure on the mixed fields (two more
+launches: k and psi; its eddy coefficients enter the next step's mixing)
+-> depth-average coupling.  A time loop is a Python loop over ``_step``
+(:meth:`FlowSolver.advance_n`), where the reference scans it.  With
+``dt_mode='split'`` the 2D mode is explicit: ``M_modesplit`` SSPRK33
+substeps at ``dt_2d`` in place of the CN solve.
 
 Entered as the reference is: ``FlowSolver(mesh2d, depth, nz)``,
-``options.update({...})``, ``initialize()``,
-``assign_initial_conditions(...)``, ``_get_state()``,
-``_gather_swe_fields()``, then ``_step(state, swe_fields, {})``.
+``options.update({...})``, ``assign_initial_conditions(...)``,
+``iterate()`` (callbacks and the conservation monitors at every export,
+``options.no_exports = True``); or, a step at a time, ``initialize()``,
+``_get_state()``, ``_gather_swe_fields()``, then
+``_step(state, swe_fields, {})``.
 
 Not ported yet, and raising ``NotImplementedError`` when selected: the
-LeapFrogAM3 stepper, GLS turbulence, Smagorinsky viscosity,
-``dt_mode`` other than '3d' and the automatic time step, the fixed-mesh
-mode, the quadratic head/density, the round-1 (non mode-split) 2D
-coupling, tracer sources and the per-tracer path they need, 3D boundary
-conditions (ROADMAP A7); exporters, callbacks and ``iterate`` (A10).
+LeapFrogAM3 stepper, Smagorinsky viscosity, a field-valued horizontal
+viscosity, the fixed-mesh mode, the quadratic head/density, the round-1
+(non mode-split) 2D coupling, tracer sources and the per-tracer path they
+need, 3D boundary conditions (ROADMAP A7); exporters
+(``no_exports=False``) and ``load_state`` (A10).
 The CG ``P1_2d`` space of the reference is not created: the step never
 uses it, and the port's function spaces are DG only.
 """
@@ -40,7 +46,8 @@ from ..equations.momentum_3d import (MomentumEquation3D,
                                      vertical_viscosity_implicit)
 from ..equations.shallowwater_2d import ModeSplit2DEquations
 from ..equations.tracer_3d import TracerEquation3D
-from ..equations.turbulence import vdiff_implicit
+from ..equations.turbulence import (GenericLengthScaleModel, GLSModelOptions,
+                                    vdiff_implicit)
 from ..equations.utility3d import (BaroclinicHeadCalculator, DensitySolver,
                                    VerticalVelocitySolver,
                                    expand_function_to_3d)
@@ -49,7 +56,12 @@ from ..fem.assembly3d import Assembler3D
 from ..fem.functionspace import Function, FunctionSpace
 from ..mesh.extruded import ExtrudedMesh
 from ..solvers.newton import NewtonParameters
-from ..timeintegration.steppers import CrankNicolson
+from ..timeintegration.steppers import CrankNicolson, get_stepper
+from ..utils.constant import Constant
+from ..utils.log import print_output
+from ..utils.profiling import timed_stage
+from .callback import (CallbackManager, TracerMassConservation3DCallback,
+                       TracerOvershootCallBack, VolumeConservation3DCallback)
 from .field_defs import FieldDict
 from .options import ModelOptions2d
 
@@ -138,12 +150,20 @@ class FlowSolver:
         self.bathymetry_input = bathymetry_2d
         self.bnd_functions = {"shallow_water": {}, "momentum": {},
                               "salt": {}, "temp": {}}
+        self.simulation_time = 0.0
+        self.iteration = 0
+        self.i_export = 0
         self._initialized = False
+        self._initial_export_done = False
+        self._monitors_registered = False
+        self.callbacks = CallbackManager()
 
     def _tensor(self, v):
         """A value as a tensor on the mesh's device and dtype."""
         if isinstance(v, Function):
             v = v.data
+        elif isinstance(v, Constant):
+            v = np.asarray(v)
         return torch.as_tensor(v, dtype=self.mesh2d.dtype,
                                device=self.mesh2d.device)
 
@@ -197,6 +217,12 @@ class FlowSolver:
         f.density_3d = full(0.0)
         f.tke_3d = full(1e-6)
         f.psi_3d = full(1e-14)
+        if o.use_turbulence:
+            # eddy coefficients of the previous turbulence update: the
+            # mixing uses them one step lagged
+            go = o.turbulence_model_options or GLSModelOptions()
+            f.nu_v_3d = full(go.visc_min)
+            f.mu_v_3d = full(go.diff_min)
         # depth average of the previous step's 3D momentum tendency: the
         # 2D mode's coupling source
         f.split_residual_2d = Function(self.function_spaces.U_2d)
@@ -208,11 +234,19 @@ class FlowSolver:
             raise _unported("the LeapFrogAM3 3D stepper")
         if ts not in ("CrankNicolson", "SSPRK22", "TwoStageRK"):
             raise ValueError(f"unknown 3D time stepper {ts!r}")
+        if str(o.dt_mode) not in ("3d", "2d", "split"):
+            raise ValueError(f"unknown dt_mode {o.dt_mode!r}")
+        if not o.no_exports:
+            raise _unported("field exporters (options.no_exports=False)",
+                            "A10")
+        visc = o.horizontal_viscosity
+        if isinstance(visc, Function):
+            visc = visc.data
+        if getattr(visc, "ndim", 0) > 0:
+            raise _unported("a field-valued horizontal_viscosity in the 3D "
+                            "momentum", "A7c")
         checks = [
-            (o.use_turbulence, "GLS turbulence"),
             (o.use_smagorinsky_viscosity, "Smagorinsky viscosity"),
-            (str(o.dt_mode) != "3d", f"dt_mode={o.dt_mode!r}"),
-            (o.use_automatic_timestep, "the automatic 3D time step"),
             (not o.use_ale_moving_mesh, "the fixed-mesh mode"),
             (o.use_quadratic_pressure or o.use_quadratic_density,
              "the quadratic baroclinic head/density"),
@@ -253,11 +287,142 @@ class FlowSolver:
         if o.use_limiter_for_tracers or o.use_limiter_for_velocity:
             self.tracer_limiter = VertexBasedP1DGLimiter3D(
                 self.mesh2d, self.n_layers)
+        if o.use_turbulence:
+            self.gls = GenericLengthScaleModel(
+                self.asm3d, o.turbulence_model_options or GLSModelOptions())
+            if o.use_turbulence_advection:
+                # tke/psi are advected like tracers before the column
+                # physics update
+                self.eq_tke = TracerEquation3D(self.mesh2d, self.asm3d, o,
+                                               label="tke_3d")
+                self.eq_psi = TracerEquation3D(self.mesh2d, self.asm3d, o,
+                                               label="psi_3d")
+
+    def add_callback(self, callback, eval_interval="export"):
+        self.callbacks.add(callback, eval_interval)
+
+    def export(self):
+        """Evaluate the export callbacks; no field exporter is ported
+        (ROADMAP A10: ``_check_options`` refuses ``no_exports=False``)."""
+        self.callbacks.evaluate(mode="export")
+
+    def load_state(self, *args, **kwargs):
+        raise _unported("load_state (HDF5 checkpoints)", "A10")
+
+    # -- CFL time-step bounds: host arithmetic ---------------------------
+    #: stability coefficients of the coupled integrators
+    _CFL_COEFFS = {"CrankNicolson": (np.inf, 1.0),
+                   "SSPRK22": (np.inf, 1.0),
+                   "LeapFrogAM3": (np.inf, 1.5874)}
+    #: stable wave-CFL coefficient of the explicit SSPRK33 2D subcycle
+    #: (dt_mode='split'); conservative DG P1 bound
+    _SPLIT_2D_CFL = 1.0
+
+    def compute_dx_factor(self):
+        """Normalised horizontal node spacing for DG(p) triangles."""
+        p = 1  # P1DG
+        l_r = p**2 / 3.0 + 7.0 / 6.0 * p + 1.0
+        return 0.5 * 0.25 / l_r
+
+    def compute_dz_factor(self):
+        return 0.5 * 0.25 * 1.0  # p = 1 interval basis
+
+    def _min_dx(self):
+        return float(np.asarray(self.mesh2d.cell_hmin_np).min())
+
+    def _max_depth(self):
+        """The deepest bathymetry node (a host read, at set-up)."""
+        return float(self.bathy_cell.max())
+
+    def _min_dz(self):
+        return self._max_depth() / self.n_layers
+
+    def compute_dt_2d(self, u_scale):
+        """dt = dx / (sqrt(g h) + U)."""
+        g = float(physical_constants["g_grav"])
+        h = max(self._max_depth(), 0.05)
+        u = np.sqrt(g * h) + float(u_scale)
+        return self._min_dx() * self.compute_dx_factor() / u
+
+    def compute_dt_h_advection(self, u_scale):
+        return self._min_dx() * self.compute_dx_factor() / float(u_scale)
+
+    def compute_dt_v_advection(self, w_scale):
+        w = max(float(w_scale), 1e-12)
+        return self._min_dz() * self.compute_dz_factor() / w
+
+    def compute_dt_diffusion(self, nu_scale):
+        """dt = (2 a dx)^2 / nu."""
+        nu = max(float(nu_scale), 1e-12)
+        min_dx = self._min_dx() * 2.0 * self.compute_dx_factor()
+        return min_dx**2 / nu
+
+    def set_time_step(self):
+        """Choose/report dt from the CFL bounds and resolve the
+        mode-split dt control: with ``dt_mode='split'`` the 2D mode runs
+        ``M_modesplit`` explicit substeps at ``dt_2d = dt / M_modesplit``
+        (``M = ceil(dt / timestep_2d)``, or from the 2D wave CFL under
+        ``use_automatic_timestep``); ``'2d'`` limits the single dt by
+        the 2D wave CFL as well; ``'3d'`` (default) uses the 3D bound with
+        an implicit 2D solve.  dt is then fitted to the export interval
+        and, for 'split', dt_2d refitted to divide dt."""
+        o = self.options
+        ts = str(o.timestepper_type)
+        cfl2d_i, cfl3d_i = self._CFL_COEFFS.get(ts, (np.inf, 1.0))
+        cfl2d = cfl2d_i * float(o.cfl_2d)
+        cfl3d = cfl3d_i * float(o.cfl_3d)
+        max_dt_swe = self.compute_dt_2d(o.horizontal_velocity_scale)
+        max_dt_hadv = self.compute_dt_h_advection(o.horizontal_velocity_scale)
+        max_dt_vadv = self.compute_dt_v_advection(o.vertical_velocity_scale)
+        max_dt_diff = self.compute_dt_diffusion(o.horizontal_viscosity_scale)
+        print_output(f"  - dt 2d swe: {max_dt_swe}")
+        print_output(f"  - dt h. advection: {max_dt_hadv}")
+        print_output(f"  - dt v. advection: {max_dt_vadv}")
+        print_output(f"  - dt viscosity: {max_dt_diff}")
+        max_dt_2d = cfl2d * max_dt_swe
+        max_dt_3d = cfl3d * min(max_dt_hadv, max_dt_vadv, max_dt_diff)
+        dt_mode = str(o.dt_mode)
+        automatic = bool(o.use_automatic_timestep)
+        if not automatic:
+            if o.timestep is None or not o.timestep > 0:
+                raise ValueError("options.timestep must be positive")
+            self.dt = float(o.timestep)
+        dt_2d = float(o.timestep_2d or 10.0)
+        if dt_mode == "split":
+            if automatic:
+                self.dt = float(max_dt_3d)
+                # the explicit 2D substep runs SSPRK33: its wave-CFL
+                # bound governs dt_2d (cfl_2d is the user safety factor)
+                dt_2d = float(self._SPLIT_2D_CFL * float(o.cfl_2d)
+                              * max_dt_swe)
+        elif dt_mode == "2d":
+            if automatic:
+                self.dt = float(min(max_dt_2d, max_dt_3d))
+        elif automatic:  # '3d'
+            self.dt = float(max_dt_3d)
+        # fit dt to the export interval
+        m_exp = max(1, int(np.ceil(o.simulation_export_time / self.dt)))
+        self.dt = float(o.simulation_export_time) / m_exp
+        if dt_mode == "split":
+            self.M_modesplit = max(1, int(np.ceil(self.dt / dt_2d)))
+            self.dt_2d = self.dt / self.M_modesplit
+        else:
+            self.M_modesplit = 1
+            self.dt_2d = self.dt
+        print_output(f"dt = {self.dt}")
+        if dt_mode == "split":
+            print_output(f"2D dt = {self.dt_2d} {self.M_modesplit}")
+        return self.dt
 
     def initialize(self):
         self.create_equations()
         o = self.options
-        self.dt = float(o.timestep)
+        if o.use_automatic_timestep or str(o.dt_mode) != "3d":
+            self.set_time_step()
+        else:
+            self.dt = float(o.timestep)
+            self.dt_2d = self.dt
+            self.M_modesplit = 1
         # barotropic Krylov: 1e-5 relative residual, short restarts (the
         # mode-split wave CFL is O(1)); the semi-implicit system is affine
         # with 1-ring sparsity, so its exact blocks are assembled per step
@@ -266,11 +431,15 @@ class FlowSolver:
         default_params = NewtonParameters(
             ksp_rtol=1e-5, ksp_max_it=48,
             gmres_restart=6 if assembled else 24)
-        self.swe_stepper = CrankNicolson(
-            self.eq_sw, self.dt, semi_implicit=True,
-            solver_parameters=(o.barotropic_solver_parameters
-                               or default_params),
-            assembled_solve=assembled)
+        if self.M_modesplit > 1:
+            # dt_mode='split': explicit SSPRK33 2D mode subcycled at dt_2d
+            self.swe_stepper = get_stepper("SSPRK33", self.eq_sw, self.dt_2d)
+        else:
+            self.swe_stepper = CrankNicolson(
+                self.eq_sw, self.dt, semi_implicit=True,
+                solver_parameters=(o.barotropic_solver_parameters
+                                   or default_params),
+                assembled_solve=assembled)
         self._build_step()
         self._initialized = True
 
@@ -321,6 +490,12 @@ class FlowSolver:
         bathy_cell = self.bathy_cell
         eq_mom, eq_salt = self.eq_momentum, self.eq_salt
         swe_stepper = self.swe_stepper
+        M_split = self.M_modesplit
+        use_turb = o.use_turbulence
+        use_turb_adv = use_turb and o.use_turbulence_advection
+        gls = getattr(self, "gls", None)
+        eq_tke = getattr(self, "eq_tke", None)
+        eq_psi = getattr(self, "eq_psi", None)
         density_solver, bhc, w_solver = (self.density_solver, self.bhc,
                                          self.w_solver)
         limiter = getattr(self, "tracer_limiter", None)
@@ -484,12 +659,17 @@ class FlowSolver:
                 for i, k in enumerate(tracer_keys):
                     new_state[k] = cp_new[..., i]
 
-            # implicit vertical mixing, wind surface stress and bottom
-            # friction
+            # implicit vertical mixing with the eddy coefficients of the
+            # previous turbulence update plus the background, wind surface
+            # stress and bottom friction
+            Dn = geom["Delta_nodes"]
             if o.use_implicit_vertical_diffusion:
-                Dn = geom["Delta_nodes"]
-                nu_col = torch.full_like(new_state["salt_3d"], nu_v0)
-                mu_col = torch.full_like(new_state["salt_3d"], mu_v0)
+                if use_turb:
+                    nu_col = state["nu_v_3d"] + nu_v0
+                    mu_col = state["mu_v_3d"] + mu_v0
+                else:
+                    nu_col = torch.full_like(new_state["salt_3d"], nu_v0)
+                    mu_col = torch.full_like(new_state["salt_3d"], mu_v0)
                 cd_val = None
                 if use_law_of_wall:
                     # the bottom velocity lives z_b = h_b/2 above the bed:
@@ -512,6 +692,35 @@ class FlowSolver:
                     new_state[k] = vdiff_implicit(new_state[k], mu_col, Dn,
                                                   dt)
 
+            # turbulence closure update on the *mixed* fields: shear and
+            # buoyancy frequencies of the new velocity (depth average still
+            # in) and the new tracers' density on the new geometry; the
+            # closure takes the lagged coefficients without the background
+            if use_turb:
+                tke_in, psi_in = state["tke_3d"], state["psi_3d"]
+                if use_turb_adv:
+                    # advection of the turbulence quantities with the same
+                    # continuity-consistent velocity as the tracers
+                    turb_fields = {"uv_3d": uv_adv, "w_3d": w_adv,
+                                   "w_mesh_3d": w_mesh}
+                    tke_in = ale_advance(eq_tke, "tke_3d", tke_in,
+                                         turb_fields, geom0, geom)
+                    psi_in = ale_advance(eq_psi, "psi_3d", psi_in,
+                                         turb_fields, geom0, geom)
+                rho_new = density_solver.solve(new_state["salt_3d"],
+                                               new_state["temp_3d"])
+                m2, n2 = gls.compute_shear_buoy_freq(uv_new, rho_new, geom,
+                                                     rho0=rho0)
+                k_new, psi_new = gls.step_columns(
+                    tke_in, psi_in, m2, n2, state["nu_v_3d"],
+                    state["mu_v_3d"], Dn, dt)
+                nu_v, mu_v, _, _ = gls.eddy_coefficients(k_new, psi_new,
+                                                         m2, n2)
+                new_state["tke_3d"] = k_new
+                new_state["psi_3d"] = psi_new
+                new_state["nu_v_3d"] = nu_v
+                new_state["mu_v_3d"] = mu_v
+
             # 2D<->3D coupling: remove the depth average (the 2D solution
             # carries it); the removed average relative to the 2D flow,
             # over dt, is the next step's 2D momentum source
@@ -529,9 +738,11 @@ class FlowSolver:
                 src_2d = src_2d + user_src
             swe_fields = dict(swe_fields)
             swe_fields["momentum_source"] = src_2d
-            sw = swe_stepper.advance(
-                0.0, {"uv": state["uv"], "elev": state["elev"]},
-                swe_fields, swe_fields, bnd_sw)
+            sw = {"uv": state["uv"], "elev": state["elev"]}
+            # dt_mode='split': M explicit barotropic substeps at dt_2d
+            for _ in range(M_split):
+                sw = swe_stepper.advance(0.0, sw, swe_fields, swe_fields,
+                                         bnd_sw)
             return post(state, sw, geom0, int_pg, swe_fields)
 
         self._pre_fn = pre
@@ -547,13 +758,41 @@ class FlowSolver:
     # ------------------------------------------------------------------
     def _get_state(self):
         f = self.fields
-        return {
+        s = {
             "uv": f.uv_2d.data, "elev": f.elev_2d.data,
             "uv_3d": f.uv_3d.data,
             "salt_3d": f.salt_3d.data, "temp_3d": f.temp_3d.data,
             "tke_3d": f.tke_3d.data, "psi_3d": f.psi_3d.data,
             "split_residual": f.split_residual_2d.data,
         }
+        if self.options.use_turbulence:
+            s["nu_v_3d"] = f.nu_v_3d.data
+            s["mu_v_3d"] = f.mu_v_3d.data
+        return s
+
+    def _set_state(self, s):
+        f = self.fields
+        f.uv_2d.data = s["uv"]
+        f.elev_2d.data = s["elev"]
+        f.uv_3d.data = s["uv_3d"]
+        # diagnostic vertical velocity from the total transport (export
+        # quality; a function of the prognostic state alone)
+        geom = self.asm3d.layer_geometry(
+            self.extruded.z_interfaces(self.bathy_cell, s["elev"]))
+        wsolve = (self.w_solver.solve_weak
+                  if self.options.use_flux_consistent_w
+                  else self.w_solver.solve)
+        f.w_3d.data = wsolve(
+            s["uv_3d"] + expand_function_to_3d(s["uv"], self.extruded.nz),
+            geom)
+        f.salt_3d.data = s["salt_3d"]
+        f.temp_3d.data = s["temp_3d"]
+        f.tke_3d.data = s["tke_3d"]
+        f.psi_3d.data = s["psi_3d"]
+        f.split_residual_2d.data = s["split_residual"]
+        if "nu_v_3d" in s:
+            f.nu_v_3d.data = s["nu_v_3d"]
+            f.mu_v_3d.data = s["mu_v_3d"]
 
     def _gather_swe_fields(self):
         o = self.options
@@ -574,8 +813,7 @@ class FlowSolver:
                 v = v[mesh.cells]       # CG1 -> P1DG cell nodes
             out["wind_stress"] = v
         if o.horizontal_viscosity is not None:
-            # a constant: the 2D viscosity fields of the reference are not
-            # ported (float() of an array raises)
+            # a constant (``_check_options`` refuses a field, ROADMAP A7c)
             out["viscosity_h"] = t(float(o.horizontal_viscosity))
         if o.horizontal_diffusivity is not None:
             out["diffusivity_h"] = t(float(o.horizontal_diffusivity))
@@ -593,3 +831,120 @@ class FlowSolver:
             out["quadratic_drag_coefficient"] = t(
                 float(o.quadratic_drag_coefficient))
         return out
+
+    def _gather_bnd_sw(self):
+        """The 2D mode's boundary data as tensors on the mesh's device."""
+        return {int(m): {k: self._tensor(v) for k, v in spec.items()}
+                for m, spec in self.bnd_functions.get(
+                    "shallow_water", {}).items()}
+
+    # -- monitors and the time loop --------------------------------------
+    def _register_monitor_callbacks(self):
+        """Attach the conservation/overshoot monitors the options ask for
+        (evaluated at every export)."""
+        o = self.options
+        if o.check_volume_conservation_3d:
+            self.add_callback(VolumeConservation3DCallback(self))
+        for name, solve in (("salinity", o.solve_salinity),
+                            ("temperature", o.solve_temperature)):
+            field = "salt_3d" if name == "salinity" else "temp_3d"
+            if getattr(o, f"check_{name}_conservation") and solve:
+                self.add_callback(
+                    TracerMassConservation3DCallback(field, self))
+            if getattr(o, f"check_{name}_overshoot") and solve:
+                self.add_callback(TracerOvershootCallBack(field, self))
+
+    def iterate(self, update_forcings=None, export_func=None):
+        """The time loop: to the end time, with the callbacks (and
+        ``export_func``) at every export.  Without ``update_forcings`` a
+        whole export interval runs as one :meth:`advance_n`; with it, the
+        forcings are gathered again before every step."""
+        if not self._initialized:
+            self.initialize()
+        if not self._monitors_registered:
+            self._register_monitor_callbacks()
+            self._monitors_registered = True
+        o = self.options
+        state = self._get_state()
+        swe_fields = self._gather_swe_fields()
+        bnd_sw = self._gather_bnd_sw()
+        next_export = self.simulation_time + o.simulation_export_time
+        self._print_state(state)
+        if not self._initial_export_done:
+            self.export()
+            self._initial_export_done = True
+        while self.simulation_time <= o.simulation_end_time - 1e-5:
+            if update_forcings is None:
+                n = max(1, int(round(
+                    (min(next_export, o.simulation_end_time + self.dt)
+                     - self.simulation_time) / self.dt)))
+                with timed_stage("mode_split_step"):
+                    state = self.advance_n(state, swe_fields, bnd_sw, n)
+                self.iteration += n
+                self.simulation_time += n * self.dt
+            else:
+                update_forcings(self.simulation_time + self.dt)
+                swe_fields = self._gather_swe_fields()
+                bnd_sw = self._gather_bnd_sw()
+                with timed_stage("mode_split_step"):
+                    state = self._step(state, swe_fields, bnd_sw)
+                self.iteration += 1
+                self.simulation_time += self.dt
+            if self.simulation_time >= next_export - 1e-5:
+                self.i_export += 1
+                next_export += o.simulation_export_time
+                self._set_state(state)
+                self._print_state(state)
+                with timed_stage("export"):
+                    self.export()
+                    if export_func is not None:
+                        export_func()
+        self._set_state(state)
+
+    @staticmethod
+    def _host(t):
+        """A tensor as a float64 numpy array (the monitors sum on the host
+        in double, whatever the model's dtype)."""
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    def _column_depth_area(self):
+        """Per cell, on the host: mean total depth H + eta and area."""
+        elev = self._host(self.fields.elev_2d.data).mean(axis=1)
+        h = self._host(self.bathy_cell).mean(axis=1)
+        return h + elev, np.asarray(self.mesh2d.cell_area_np)
+
+    def compute_volume_3d(self):
+        """Total water volume sum(area * (H + eta)); read on the host
+        (once per export)."""
+        depth, area = self._column_depth_area()
+        return float((depth * area).sum())
+
+    def compute_tracer_mass_3d(self, name):
+        """int tracer dV with sigma-layer weights."""
+        tr = self._host(self.fields[name].data)            # (nc, 3, nz, 2)
+        depth, area = self._column_depth_area()
+        w = np.diff(self.extruded.sigma_np)                # (nz,) fractions
+        col = (tr.mean(axis=(1, 3)) * w[None, :]).sum(axis=1)
+        return float((col * depth * area).sum())
+
+    def print_state_debug(self):
+        """Min/max dump of every registered field."""
+        for key in sorted(self.fields.keys()):
+            d = self.fields[key].data
+            print_output(f"{key:16s} {float(d.min()):14.6e} .. "
+                         f"{float(d.max()):14.6e}")
+
+    def _print_state(self, state):
+        """One line of norms and ranges (host reads; once per export)."""
+        asm = self.asm
+        e = float(asm.norm_l2(state["elev"]))
+        u2 = float(asm.norm_l2(state["uv"]))
+        u3 = float(torch.sqrt((state["uv_3d"] ** 2).sum()))
+        s_rng = (float(state["salt_3d"].min()), float(state["salt_3d"].max()))
+        t_rng = (float(state["temp_3d"].min()), float(state["temp_3d"].max()))
+        print_output(
+            f"{self.i_export:5d} {self.iteration:5d} "
+            f"T={self.simulation_time:10.2f} eta norm: {e:10.4f} "
+            f"u norm: {u2:10.4f} u3 norm: {u3:10.4f} "
+            f"salt: {s_rng[0]:.3f}..{s_rng[1]:.3f} "
+            f"temp: {t_rng[0]:.3f}..{t_rng[1]:.3f}")
