@@ -18,6 +18,16 @@ PyTorch version:
   (``dt_mode='split'``, no ring kernel); and the Kato-Phillips
   wind-entrainment column (f64, 4 h through ``iterate()``), whose
   mixed-layer depth must follow the empirical curve;
+* the Rhine ROFI example (``examples/rhineROFI/rhineROFI.py``) at its own
+  size (870 triangles x 12 layers, dt 7 s, 200 steps), its case built
+  through the port from a copy of its mesh generator: LeapFrogAM3, GLS,
+  Smagorinsky, the tracer limiter, momentum ``symm`` and salinity
+  ``value`` boundaries, the Kelvin-wave elevation set every step through
+  ``iterate(update_forcings=...)``; the same options at the bench's width
+  (the estuary: 48x48x12, two tracers with their own boundaries and a
+  heat source); and the bench's 3D channel under each coupling of the 3D
+  model's last slice (fixed mesh, unsplit 2D mode, quadratic head and
+  density, LeapFrogAM3 with GLS and advected tke/psi);
 * the 2D semi-implicit CrankNicolson step (the CN workload: 320x160
   rectangle, 102,400 cells, 921,600 DOF, f32): ring matvec and
   block-Jacobi;
@@ -40,8 +50,9 @@ Phases, each printing its lines:
    of the n at which its general kernel takes over; then every kernel at
    the shapes the port runs it at (nc 4,608 and 102,400; tridiag the
    velocity solve's 13,824 columns of 13 with two right-hand sides sharing
-   the coefficients, 13,824 and 27,648 columns of 13, and 4096 columns of
-   300), each with one PyTorch call computing the same function as its
+   the coefficients, 13,824 and 27,648 columns of 13, 4096 columns of 300,
+   and ROFI's 2,610 columns of 13 with two and one), each with one PyTorch
+   call computing the same function as its
    yardstick (cuSPARSE bsrmv, ``torch.bmm``, ``torch.linalg.solve`` on
    dense matrices);
    device time (profiler; at nc 102,400 with the L2 flushed before each
@@ -58,7 +69,8 @@ Phases, each printing its lines:
    tridiagonal kernel, no copy of a coefficient);
 7. 3D parity, f64, GPU against the CPU plain path: one step of the plain
    workload, three of the GLS workload with and without advection of tke
-   and psi;
+   and psi, three of the estuary at 8x8x4, of ROFI at coarse 16 with 2
+   layers (from a stratified start) and of each coupling at 16x16x12;
 12. 3D model with GLS, f32, full size: 1 warm-up + 20 steps through
     ``iterate()`` with two exports; ms/step beside ``advance_n`` over the
     same steps (whose final state must be the same bits), launches per
@@ -70,6 +82,19 @@ Phases, each printing its lines:
     as ``M_modesplit`` explicit SSPRK33 substeps, no ring kernel;
 14. Kato-Phillips, f64: 240 steps of 60 s through ``iterate()``; the
     mixed-layer depth within 10% of 1.05 u* sqrt(t / N0);
+15. Rhine ROFI, f32: 200 steps through ``iterate(update_forcings=...)``;
+    ms/step, launches (4 tridiag a step), FGMRES cycles, the example's
+    checks (salinity within [-0.01, 32.01], freshwater volume changed by
+    less than 5%) and the monitors;
+16. the estuary, f32, 48x48x12: 1 warm-up + 20 steps through
+    ``iterate(update_forcings=...)``; ms/step, DOF*steps/s, launches (5
+    tridiag a step), salinity bounds, the monitors; from a fresh process
+    (``python3 chip_smoke.py profile3d_estuary``) the device kernels of
+    one step;
+17. the couplings, f32, 48x48x12: 1 warm-up + 5 steps each; ms/step and
+    launches; from a fresh process (``python3 chip_smoke.py
+    profile3d_more``) the device kernels of one step of each and of one
+    ROFI step;
 8. 2D model, SSPRK33, f32, full size: 1 warm-up + 30 timed steps through
    ``iterate()``, rates, launches, a profiler count per step;
 9. 2D model, semi-implicit CN, f32, full size: 1 warm-up + 10 timed
@@ -106,12 +131,14 @@ from thetis_tpu_torch.equations.shallowwater_2d import (
     ShallowWaterEquations, swe_state)
 from thetis_tpu_torch.fem.assembly import DGAssembler
 from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
+from thetis_tpu_torch.interop import state3d_keys
 from thetis_tpu_torch.kernels import ringmv, tridiag
 from thetis_tpu_torch.equations.momentum_3d import vertical_viscosity_implicit
 from thetis_tpu_torch.kernels.cases import (RAGGED_NC, RAGGED_TRIDIAG,
                                             ragged_case, ragged_tridiag_case)
 from thetis_tpu_torch.mesh.generation import (PeriodicRectangleMesh,
                                               RectangleMesh)
+from thetis_tpu_torch.mesh.mesh2d import Mesh2d
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 from thetis_tpu_torch.model.flowsolver3d import FlowSolver
 from thetis_tpu_torch.solvers.assembled import get_coloring, ring_tables
@@ -264,6 +291,21 @@ def device_ms(fn, reps=20, flush=None):
                            "calls")
     per_call = max(1, round(rows[0][1] / reps))  # costliest kernel's count
     return sum(r[0] for r in rows) / (rows[0][1] / per_call) / 1e3
+
+
+def show_step_profile(tag, title, fn, top=6):
+    """The device kernels of one call of ``fn``: their count, device time,
+    the tridiagonal ones and the ``top`` costliest."""
+    rows = device_rows(fn)
+    if not rows:
+        raise RuntimeError(f"the profiler saw no device kernel in {title}")
+    solves = [(cnt, key) for _, cnt, key in rows if "tridiag" in key]
+    log(f"{tag} {title}: {sum(r[1] for r in rows)} device kernels, device "
+        f"busy {sum(r[0] for r in rows) / 1e3:.3f} ms; tridiag kernels: "
+        + "; ".join(f"x{c} {k.split('::')[-1][:60]}" for c, k in solves)
+        + "; top by device time:")
+    for us, cnt, key in rows[:top]:
+        log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
 
 
 def sync_time(fn):
@@ -452,6 +494,257 @@ def kato_phillips(device, dtype, hours=4):
     return s, z_if
 
 
+# -- the Rhine ROFI example (examples/rhineROFI/rhineROFI.py), its case
+# built through the port: a 724 x 764 km ocean box with a 45 km river
+# channel discharging 1500 m3/s of fresh water at 52.5 N under an M2
+# Kelvin wave.  The tests build the reference's solver from the same
+# description (``rofi_description``).
+ROFI_ETA, ROFI_H_OCEAN, ROFI_H_RIVER = 1.0, 20.0, 5.0
+ROFI_L_RIVER, ROFI_W_RIVER, ROFI_Y_RIVER = 45e3, 2e3, 30e3
+ROFI_Q_RIVER, ROFI_SALT_OCEAN, ROFI_SALT_RIVER = 1.5e3, 32.0, 0.0
+ROFI_T_TIDE = 44714.0
+ROFI_DT = 7.0
+ROFI_LAT = 52.5
+ROFI_COLS = 870 * 3                     # coarse 1: 870 triangles
+
+
+def _graded(x0, x1, dx0, ratio, reverse=False):
+    """Grid lines from x0 to x1 starting at spacing dx0, growing by
+    ``ratio`` per cell; the last line lands exactly on x1
+    (rhineROFI.py:54-63)."""
+    xs = [0.0]
+    d = dx0
+    while xs[-1] < (x1 - x0):
+        xs.append(xs[-1] + d)
+        d *= ratio
+    xs = np.asarray(xs) * (x1 - x0) / xs[-1]
+    return x0 + ((x1 - x0) - xs[::-1] if reverse else xs)
+
+
+def rofi_mesh_arrays(coarse=1.0):
+    """``make_rofi_mesh`` of rhineROFI.py:66-118: the ocean box [-Lx, 0] x
+    [0, Ly] (graded from 2 km x ``coarse`` at the coast and the mouth) and
+    the river strip, joined conformally.  Returns ``(coords, cells,
+    markers)``, ``markers`` the boundary-marker function of edge
+    midpoints (1 south, 2 west, 3 north, 6 the river inlet, 0 land)."""
+    lx, ly = 724e3, 764e3
+    dx0 = 2e3 * coarse
+    half = ROFI_W_RIVER / 2
+    xs = _graded(-lx, 0.0, dx0, 1.35, reverse=True)
+    ys = np.unique(np.concatenate([
+        _graded(0.0, ROFI_Y_RIVER - half, dx0, 1.35, reverse=True),
+        [ROFI_Y_RIVER - half, ROFI_Y_RIVER + half],
+        _graded(ROFI_Y_RIVER + half, ly, dx0, 1.35)]))
+    coords, vid, cells = [], {}, []
+
+    def add(x, y):
+        key = (round(x, 3), round(y, 3))
+        if key not in vid:
+            vid[key] = len(coords)
+            coords.append((x, y))
+        return vid[key]
+
+    def add_quad(x0, x1, y0, y1):
+        v00, v10, v01, v11 = add(x0, y0), add(x1, y0), add(x0, y1), \
+            add(x1, y1)
+        cells.extend([(v00, v10, v11), (v00, v11, v01)])
+
+    for i in range(len(xs) - 1):
+        for j in range(len(ys) - 1):
+            add_quad(xs[i], xs[i + 1], ys[j], ys[j + 1])
+    xr = _graded(0.0, ROFI_L_RIVER, dx0, 1.2)
+    for i in range(len(xr) - 1):
+        add_quad(xr[i], xr[i + 1], ROFI_Y_RIVER - half, ROFI_Y_RIVER + half)
+
+    def markers(mid):
+        m = np.zeros(len(mid), dtype=np.int32)
+        m[np.abs(mid[:, 1]) < 1.0] = 1
+        m[np.abs(mid[:, 0] + lx) < 1.0] = 2
+        m[np.abs(mid[:, 1] - ly) < 1.0] = 3
+        m[np.abs(mid[:, 0] - ROFI_L_RIVER) < 1.0] = 6
+        return m
+
+    return (np.asarray(coords), np.asarray(cells, dtype=np.int32), markers)
+
+
+def rofi_description(coords, cells, layers, steps):
+    """The ROFI case's numbers on a mesh (rhineROFI.py:78-211): the CG1
+    bathymetry, the options (``steps`` steps of 7 s, one export), the
+    Kelvin-wave elevation as a function of time at the vertices, the
+    boundary conditions with ``"kelvin"`` where that CG1 field goes, and
+    the initial elevation, velocity and salinity at the cell nodes."""
+    g = 9.81
+    c_wave = math.sqrt(g * ROFI_H_OCEAN)
+    omega_tide = 2 * np.pi / ROFI_T_TIDE
+    t_day = 0.99726968 * 24 * 3600
+    cor = 2 * (2 * np.pi / t_day) * math.sin(math.radians(ROFI_LAT))
+    k, m = omega_tide / c_wave, cor / c_wave
+    xv, yv = coords[:, 0], coords[:, 1]
+    bathy = np.where(xv <= 0.0, ROFI_H_OCEAN,
+                     ROFI_H_OCEAN * (1 - xv / ROFI_L_RIVER)
+                     + ROFI_H_RIVER * (xv / ROFI_L_RIVER))
+    options = dict(
+        element_family="dg-dg", timestepper_type="LeapFrogAM3",
+        solve_salinity=True, solve_temperature=False,
+        constant_temperature=10.0, use_implicit_vertical_diffusion=True,
+        use_bottom_friction=True, bottom_roughness=0.005,
+        use_turbulence=True, use_baroclinic_formulation=True,
+        use_lax_friedrichs_velocity=True, use_lax_friedrichs_tracer=True,
+        vertical_viscosity=1.3e-6, vertical_diffusivity=1.4e-7,
+        use_limiter_for_tracers=True, use_smagorinsky_viscosity=True,
+        smagorinsky_coefficient=1.0 / math.sqrt(5.0),
+        coriolis_frequency=cor, simulation_export_time=steps * ROFI_DT,
+        simulation_end_time=steps * ROFI_DT, horizontal_velocity_scale=2.0,
+        check_salinity_overshoot=True, check_salinity_conservation=True,
+        timestep=ROFI_DT, no_exports=True)
+
+    def kelvin(t):
+        return (ROFI_ETA * np.exp(xv * m)
+                * np.cos(yv * k - omega_tide * t))
+
+    bnd = {"shallow_water": {1: {"elev": "kelvin"}, 2: {"elev": "kelvin"},
+                             3: {"elev": "kelvin"},
+                             6: {"flux": -ROFI_Q_RIVER}},
+           "momentum": {mk: {"symm": None} for mk in (1, 2, 3, 6)},
+           "salt": {1: {"value": ROFI_SALT_OCEAN},
+                    2: {"value": ROFI_SALT_OCEAN},
+                    3: {"value": ROFI_SALT_OCEAN},
+                    6: {"value": ROFI_SALT_RIVER}}}
+    xc = coords[cells]
+    ocean = xc[..., 0] <= 0.0
+    decay = np.exp(xc[..., 0] * m) * np.cos(xc[..., 1] * k)
+    elev0 = np.where(ocean, ROFI_ETA * decay,
+                     ROFI_ETA * np.cos(xc[..., 1] * k))
+    v0 = np.where(ocean, (g * k / omega_tide) * ROFI_ETA * decay, 0.0)
+    uv0 = np.stack([np.zeros_like(v0), v0], axis=-1)
+    salt2d = (ROFI_SALT_OCEAN - (ROFI_SALT_OCEAN - ROFI_SALT_RIVER)
+              * (1 + np.tanh((xc[..., 0] - 10.5e3) / 2000.0)) / 2)
+    salt0 = np.broadcast_to(salt2d[:, :, None, None],
+                            salt2d.shape + (layers, 2)).copy()
+    return dict(bathymetry=bathy, options=options, kelvin=kelvin, bnd=bnd,
+                elev=elev0, uv=uv0, salt=salt0)
+
+
+def rofi_freshwater(s, bathy_cell):
+    """int (1 - S/S_ocean) dV, the example's freshwater diagnostic
+    (rhineROFI.py:214-222), on the host in f64."""
+    salt = s.fields.salt_3d.data.double().cpu().numpy()
+    elev = s.fields.elev_2d.data.double().cpu().numpy()
+    depth = (bathy_cell + elev).mean(axis=1)
+    fresh = (1.0 - salt / ROFI_SALT_OCEAN).mean(axis=(1, 2, 3))
+    return float((fresh * depth * s.mesh2d.cell_area_np).sum())
+
+
+def rofi_solver(device, dtype, coarse=1.0, layers=12, steps=200):
+    """The ROFI example's solver through the port, as its script builds it:
+    options, boundary conditions with the Kelvin-wave elevation as a CG1
+    ``Function``, ``initialize``, ``assign_initial_conditions``.  Returns
+    the solver, the ``update_forcings`` the script passes to ``iterate``
+    and the bathymetry at the cell nodes (numpy)."""
+    physical_constants["rho0"] = 1000.0  # rhineROFI.py:23
+    coords, cells, markers = rofi_mesh_arrays(coarse)
+    mesh2d = Mesh2d(coords, cells, boundary_markers=markers,
+                    name="rhine_rofi", device=device, dtype=dtype)
+    d = rofi_description(coords, cells, layers, steps)
+    P1 = FunctionSpace(mesh2d, "CG", 1)
+    bathy = Function(P1, name="Bathymetry", data=d["bathymetry"])
+    s = FlowSolver(mesh2d, bathy, layers)
+    s.options.update(d["options"])
+    bnd_elev = Function(P1, name="bnd elevation", data=d["kelvin"](0.0))
+    for which, specs in d["bnd"].items():
+        s.bnd_functions[which] = {
+            mk: {k: bnd_elev if v == "kelvin" else v for k, v in sp.items()}
+            for mk, sp in specs.items()}
+    s.initialize()
+    s.assign_initial_conditions(
+        elev=torch.as_tensor(d["elev"], dtype=dtype, device=device),
+        uv_2d=torch.as_tensor(d["uv"], dtype=dtype, device=device),
+        salt=torch.as_tensor(d["salt"], dtype=dtype, device=device))
+
+    def update_forcings(t):
+        bnd_elev.data = torch.as_tensor(d["kelvin"](t), dtype=dtype,
+                                        device=device)
+
+    return s, update_forcings, d["bathymetry"][cells]
+
+
+# -- the estuary: ROFI's options at the bench's full width ---------------
+EST_N, EST_L = 48, 96e3                 # 48 x 48 x 2 triangles of 2 km
+EST_H_OCEAN, EST_H_RIVER = 20.0, 5.0    # west (ocean) .. east (river)
+EST_SPONGE, EST_VISC = 10e3, (1.0, 50.0)
+EST_HEAT = 1e-4                         # K/s in the top layer
+
+
+def estuary(device, dtype, n=EST_N, nz=NZ3):
+    """ROFI's options on a 96 x 96 km rectangle of 2 km cells (ROFI's
+    finest spacing) and ``nz`` layers: depth 20 m at the west (the ocean,
+    marker 1) ramping to 5 m at the east (the river, marker 2), markers 3
+    and 4 land.  West: an M2 tide of 1 m as a CG1 ``Function`` set every
+    step, salinity 32, temperature 10, momentum ``symm``; east: an inflow
+    of 1,500 m^3/s (``flux``, and ``un`` matching it over the section),
+    salinity 0, temperature 15.  LeapFrogAM3, GLS, Smagorinsky 1/sqrt(5)
+    on a CG1 background viscosity rising from 1 to 50 m^2/s over the
+    western 10 km, Coriolis at 52.5 N, the tracer limiter and a heat
+    source in the top layer: both tracers advance alone (different
+    boundaries, one source).  The start: at rest, salinity falling from 30
+    (west) to 0 (east) and 2 psu fresher at the top than at the bed,
+    temperature 10..15 C and 1 C warmer on top (stably stratified
+    everywhere, so the closure's buoyancy is not roundoff).  Returns the
+    solver, its ``update_forcings`` and the 3D DOF count."""
+    physical_constants["rho0"] = 1000.0
+    mesh2d = RectangleMesh(n, n, EST_L, EST_L, device=device, dtype=dtype)
+    P1 = FunctionSpace(mesh2d, "CG", 1)
+    x = mesh2d.coords_np[:, 0]
+    depth = EST_H_OCEAN + (EST_H_RIVER - EST_H_OCEAN) * x / EST_L
+    visc = EST_VISC[0] + (EST_VISC[1] - EST_VISC[0]) * np.clip(
+        1.0 - x / EST_SPONGE, 0.0, 1.0)
+    s = FlowSolver(mesh2d, Function(P1, data=depth), nz)
+    heat = torch.zeros((mesh2d.nc, 3, nz, 2), dtype=dtype, device=device)
+    heat[:, :, -1] = EST_HEAT
+    t_day = 0.99726968 * 24 * 3600
+    s.options.update(dict(
+        timestepper_type="LeapFrogAM3", solve_salinity=True,
+        solve_temperature=True, use_implicit_vertical_diffusion=True,
+        use_bottom_friction=True, bottom_roughness=0.005,
+        use_turbulence=True, use_baroclinic_formulation=True,
+        use_lax_friedrichs_velocity=True, use_lax_friedrichs_tracer=True,
+        vertical_viscosity=1.3e-6, vertical_diffusivity=1.4e-7,
+        use_limiter_for_tracers=True, use_smagorinsky_viscosity=True,
+        smagorinsky_coefficient=1.0 / math.sqrt(5.0),
+        horizontal_viscosity=Function(P1, data=visc),
+        coriolis_frequency=2 * (2 * np.pi / t_day)
+        * math.sin(math.radians(ROFI_LAT)),
+        temperature_source_3d=heat, timestep=ROFI_DT,
+        simulation_export_time=ROFI_DT, simulation_end_time=ROFI_DT,
+        horizontal_velocity_scale=2.0, no_exports=True,
+        check_volume_conservation_3d=True,
+        check_salinity_overshoot=True, check_temperature_overshoot=True))
+    tide = Function(P1, data=np.ones_like(x))
+    un_river = -ROFI_Q_RIVER / (EST_L * EST_H_RIVER)
+    s.bnd_functions.update({
+        "shallow_water": {1: {"elev": tide}, 2: {"flux": -ROFI_Q_RIVER}},
+        "momentum": {1: {"symm": None}, 2: {"un": un_river}},
+        "salt": {1: {"value": 32.0}, 2: {"value": 0.0}},
+        "temp": {1: {"value": 10.0}, 2: {"value": 15.0}}})
+    s.initialize()
+    xc = mesh2d.coords_np[mesh2d.cells_np][..., 0]          # (nc, 3)
+    sig = s.extruded.sigma_np
+    sig_n = np.stack([sig[:-1], sig[1:]], axis=-1)          # (nz, 2)
+    salt = (30.0 * (1.0 - xc / EST_L))[:, :, None, None] + 2.0 * (1 - sig_n)
+    temp = (10.0 + 5.0 * xc / EST_L)[:, :, None, None] + sig_n
+    s.assign_initial_conditions(
+        salt=torch.as_tensor(salt, dtype=dtype, device=device),
+        temp=torch.as_tensor(temp, dtype=dtype, device=device))
+    omega = 2 * np.pi / ROFI_T_TIDE
+
+    def update_forcings(t):
+        tide.data = torch.full((mesh2d.nv,), math.cos(omega * t),
+                               dtype=dtype, device=device)
+
+    n_dofs = 6 * mesh2d.nc * 3 * nz * 2
+    return s, update_forcings, n_dofs
+
+
 def iterate_steps(s, n, exports=1):
     """``n`` more steps through ``iterate()``: the end time moves on by
     ``n`` dt and the export interval is set so that they run as
@@ -628,12 +921,14 @@ def phase_kernel_ragged():
             f"with no valid slot): max|err|/max|ref| {'; '.join(errs)}: ok")
 
 
-def phase_kernel_ring(nx, ny, periodic):
+def phase_kernel_ring(nx, ny, periodic, mesh=None):
+    """Both ring kernels at the ring of a ``nx`` x ``ny`` rectangle (the 3D
+    bench's periodic one, or the 2D bench's), or of ``mesh``."""
     dev = torch.device("cuda")
-    if periodic:
+    if mesh is None and periodic:
         mesh = PeriodicRectangleMesh(nx, ny, L3, L3, direction="x",
                                      device=dev, dtype=torch.float64)
-    else:
+    elif mesh is None:
         mesh = RectangleMesh(nx, ny, LX, LY, device=dev, dtype=torch.float64)
     ring, valid = ring_tables(mesh)
     nc = mesh.nc
@@ -936,9 +1231,10 @@ def phase_slice3d(smi):
 
 def run_profile(mode, tag):
     """The profiler's captures of ``mode`` (``profile3d``,
-    ``profile3d_gls``) in a process of their own: late in this long one
-    the profiler loses kernel records.  Its ``tag`` lines are passed on; a
-    failure there fails here."""
+    ``profile3d_gls``, ``profile3d_estuary``, ``profile3d_more``) in a
+    process of their own: late in this long one the profiler loses kernel
+    records.  Its lines starting with ``tag`` (a prefix or a tuple of
+    them) are passed on; a failure there fails here."""
     sub = subprocess.run(
         [sys.executable, os.path.abspath(__file__), mode],
         capture_output=True, text=True, timeout=300)
@@ -1026,38 +1322,47 @@ def profile3d():
             f"result: {launches} launches, {allocs} allocations, {rows}")
 
 
-def phase_parity3d(nx=NX3, ny=NY3):
-    """f64 on the GPU (kernels) against the CPU (plain path): one step of
-    the plain workload, then three of the GLS workload without and with
-    advection of tke and psi (every state key, the lagged eddy
-    coefficients included).  Three, because the closure starts on its
-    floors: the first step moves the eddy coefficients only, and a uniform
-    tke and psi have nothing to advect."""
-    cases = {"": (workload3d, 1),
-             " gls": (workload3d_gls, 3),
-             " gls advected": (
-                 lambda *a: workload3d_gls(*a, advect=True), 3)}
-    for tag, (make, nsteps) in cases.items():
-        cpu = make(torch.device("cpu"), torch.float64, nx, ny)
-        gpu = make(torch.device("cuda"), torch.float64, nx, ny)
+def phase_parity3d(nx=NX3, nx_small=16):
+    """f64 on the GPU (kernels) against the CPU (plain path), every state
+    key: one step of the plain workload and three of the GLS workload
+    without and with advection of tke and psi (at full width: the closure
+    starts on its floors, so the first step moves the eddy coefficients
+    only, and a uniform tke and psi have nothing to advect); three steps
+    of the estuary at 8 x 8 x 4, of ROFI at coarse 16 with 2 layers, of
+    each coupling on the channel at ``nx_small`` x ``nx_small`` and of
+    LeapFrogAM3 with GLS at full width (on the GLS workload at 8 x 8 the
+    closure turns a relative change of 1e-15 in the start into 2e-9 of
+    mu_v's scale in three steps, under SSPRK22 as under LeapFrogAM3; at 16
+    x 16 and 48 x 48 into 5-7e-11, which the card's f64 roundoff made
+    5.5e-10 at 16 x 16 and 4.5e-11 at 48 x 48)."""
+    cases = parity_cases(nx)
+    small = parity_cases(nx_small)
+    for name in COUPLINGS:
+        if name != "leapfrog_gls_advected":   # at full width, as the GLS
+            cases[f" {name}"] = small[f" {name}"]  # cases above
+    for tag, (make, nsteps, per_step) in cases.items():
+        cpu, gpu = make(torch.device("cpu")), make(torch.device("cuda"))
+        bnd_gpu = gpu[3]
         reset_counts()
         a, t_gpu = sync_time(
-            lambda: gpu[0].advance_n(gpu[1], gpu[2], {}, nsteps))
+            lambda: gpu[0].advance_n(gpu[1], gpu[2], bnd_gpu, nsteps))
         n = counts()
-        if min(n.values()) == 0 or \
-                n["tridiag"] != (4 if tag else 2) * nsteps:
+        if min(n.values()) == 0 or n["tridiag"] != per_step * nsteps:
             raise AssertionError(f"the f64 GPU 3D{tag} steps' launches: {n}")
         t0 = time.perf_counter()
-        b = cpu[0].advance_n(cpu[1], cpu[2], {}, nsteps)
+        b = cpu[0].advance_n(cpu[1], cpu[2], cpu[3], nsteps)
         t_cpu = time.perf_counter() - t0
-        if sorted(a) != sorted(b) or ("nu_v_3d" in b) != bool(tag):
+        if sorted(a) != sorted(b) or \
+                tuple(sorted(b)) != state3d_keys(cpu[0].options):
             raise AssertionError(f"parity3d{tag}: state keys {sorted(a)}")
-        if tag and not float(b["tke_3d"].max()) > 2e-6:
+        if "gls" in tag and not float(b["tke_3d"].max()) > 2e-6:
             raise AssertionError(f"parity3d{tag}: tke_3d still on its floor")
         errs = compare(f"parity3d{tag}", a, b, PARITY_RTOL)
-        log(f"[parity3d{tag}] f64 {nx}x{ny}x{NZ3}, {nsteps} step(s), GPU "
-            f"kernels {t_gpu:.2f} s vs CPU plain {t_cpu:.2f} s: max|diff|/max "
-            f"{errs} <= {PARITY_RTOL:g} x max: ok")
+        mesh = cpu[0].mesh2d
+        log(f"[parity3d{tag}] f64 {mesh.nc} triangles x {cpu[0].n_layers} "
+            f"layers, {nsteps} step(s), GPU kernels {t_gpu:.2f} s vs CPU "
+            f"plain {t_cpu:.2f} s: max|diff|/max {errs} "
+            f"<= {PARITY_RTOL:g} x max: ok")
 
 
 def field_range(v):
@@ -1183,32 +1488,19 @@ def profile3d_gls():
     out = s.advance_n(state0, f, {}, STEPS3 + 1)
     device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
     tag = "[model3d gls profile]"
-
-    def show(title, rows, top):
-        if not rows:
-            raise RuntimeError(f"the profiler saw no device kernel in {title}")
-        solves = [(cnt, key) for _, cnt, key in rows if "tridiag" in key]
-        log(f"{tag} {title}: {sum(r[1] for r in rows)} device kernels, "
-            f"device busy {sum(r[0] for r in rows) / 1e3:.3f} ms; tridiag "
-            "kernels: " + "; ".join(
-                f"x{c} {k.split('::')[-1][:60]}" for c, k in solves)
-            + "; top by device time:")
-        for us, cnt, key in rows[:top]:
-            log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
-
-    show("one GLS step", device_rows(lambda: s._step(out, f, {})), 12)
+    show_step_profile(tag, "one GLS step", lambda: s._step(out, f, {}), 12)
     geom = s.asm3d.layer_geometry(
         s.extruded.z_interfaces(s.bathy_cell, out["elev"]))
     uv = out["uv_3d"] + out["uv"][:, :, None, None, :]
     rho = s.density_solver.solve(out["salt_3d"], out["temp_3d"])
     m2, n2 = s.gls.compute_shear_buoy_freq(uv, rho, geom,
                                            rho0=physical_constants["rho0"])
-    show("one step_columns call", device_rows(lambda: s.gls.step_columns(
+    show_step_profile(tag, "one step_columns call", lambda: s.gls.step_columns(
         out["tke_3d"], out["psi_3d"], m2, n2, out["nu_v_3d"],
-        out["mu_v_3d"], geom["Delta_nodes"], s.dt)), 6)
-    show("one eddy_coefficients call", device_rows(
-        lambda: s.gls.eddy_coefficients(out["tke_3d"], out["psi_3d"], m2,
-                                        n2)), 4)
+        out["mu_v_3d"], geom["Delta_nodes"], s.dt), 6)
+    show_step_profile(tag, "one eddy_coefficients call",
+                      lambda: s.gls.eddy_coefficients(
+                          out["tke_3d"], out["psi_3d"], m2, n2), 4)
 
 
 def phase_model3d_split(smi):
@@ -1277,6 +1569,262 @@ def phase_katophillips(smi):
         f"surface tke {prof[-1]:.3e} m^2/s^2, max nu_v "
         f"{float(s.fields.nu_v_3d.data.max()):.3e} m^2/s; card: {smi}")
     return n
+
+
+# -- this slice's paths: ROFI, the estuary, the couplings ----------------
+ROFI_STEPS = 200
+EST_STEPS = STEPS3                       # 1 warm-up + 20 timed
+COUPLING_STEPS = 5
+#: the 3D workload (bench.py) under each option of the couplings phase
+COUPLINGS = {
+    "fixed_mesh": dict(use_ale_moving_mesh=False),
+    "unsplit": dict(use_modesplit_2d=False),
+    "quadratic": dict(use_quadratic_pressure=True,
+                      use_quadratic_density=True),
+    "leapfrog_gls_advected": None,       # the GLS workload, see below
+}
+#: tridiagonal launches a step: velocity pair, each tracer, k and psi
+TRIDIAG_PER_STEP = {"rofi": 4, "estuary": 5, "fixed_mesh": 2, "unsplit": 2,
+                    "quadratic": 2, "leapfrog_gls_advected": 4}
+
+
+def coupling_workload(name, device, dtype, nx=NX3, ny=NY3):
+    """``(solver, state, fields, DOF)`` of the bench's 3D workload under
+    the coupling ``name``; ``leapfrog_gls_advected`` is the GLS workload
+    with LeapFrogAM3 and tke/psi advected."""
+    if name == "leapfrog_gls_advected":
+        opts = dict(GLS_OPTIONS, use_turbulence_advection=True,
+                    wind_stress=np.array(GLS_WIND),
+                    timestepper_type="LeapFrogAM3")
+        return workload3d(device, dtype, nx, ny, options=opts,
+                          stretch=GLS_STRETCH)
+    return workload3d(device, dtype, nx, ny, options=COUPLINGS[name])
+
+
+def check_finite(tag, state):
+    for k, v in state.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: non-finite {k}")
+
+
+def monitor_text(s):
+    out = []
+    for name, cb in s.callbacks["export"].items():
+        v = cb()
+        out.append(f"{name} rel. error {v[1]:.3e}" if len(v) == 2 else
+                   f"{name} {v[0]:.4f}..{v[1]:.4f} (under/overshoot "
+                   f"{v[2]:.2e}/{v[3]:.2e})")
+    return "; ".join(out)
+
+
+def launches_text(n, steps):
+    cycles = n["block_diag_mv"] / steps / RESTART3
+    return (f"launches {n} = per step "
+            f"{ {k: v / steps for k, v in n.items()} } ({cycles:.2f} FGMRES "
+            f"cycles of {RESTART3})")
+
+
+def check_launches(tag, n, steps, per_step):
+    if n["tridiag"] != per_step * steps:
+        raise AssertionError(f"{tag}: tridiag launched {n['tridiag']} times "
+                             f"in {steps} steps, not {per_step} a step")
+    if n["ring_mv"] == 0 or n["block_diag_mv"] == 0:
+        raise AssertionError(f"{tag}: the barotropic solve missed a kernel: "
+                             f"{n}")
+
+
+def phase_model3d_rofi(smi):
+    """The Rhine ROFI example at its own size (870 triangles, 12 layers,
+    dt 7 s), 200 steps through ``iterate(update_forcings=...)`` as its
+    script runs it, in f32 and in f64, with the example's checks:
+    salinity within [-0.01, 32.01], and the freshwater volume changed by
+    less than 5% (in f64: in f32 the ocean's salinity, 32 to 6e-8, drifts
+    up by ~1e-4 psu in 200 steps, which the ocean's 1e13 m^3 turn into a
+    ~10% loss of the diagnostic)."""
+    dev = torch.device("cuda")
+    total = {k: 0 for k in KERNELS}
+    ms = {}
+    for dtype in (torch.float32, torch.float64):
+        s, forcing, bathy_cell = rofi_solver(dev, dtype, steps=ROFI_STEPS)
+        fw0 = rofi_freshwater(s, bathy_cell)
+        reset_counts()
+        _, t = sync_time(lambda: s.iterate(update_forcings=forcing))
+        n = counts()
+        fw1 = rofi_freshwater(s, bathy_cell)
+        state = s._get_state()
+        tag = f"model3d rofi {str(dtype)[6:]}"
+        check_finite(tag, state)
+        check_launches(tag, n, ROFI_STEPS, TRIDIAG_PER_STEP["rofi"])
+        for k in KERNELS:
+            total[k] += n[k]
+        salt = state["salt_3d"]
+        lo, hi = float(salt.min()), float(salt.max())
+        drift = (fw1 - fw0) / fw0
+        if s.iteration != ROFI_STEPS or not (lo > -0.01 and hi < 32.01) \
+                or (dtype == torch.float64 and not abs(drift) < 0.05):
+            raise AssertionError(f"{tag}: {s.iteration} steps, salinity "
+                                 f"{lo}..{hi}, freshwater change {drift}")
+        ms[dtype] = t / ROFI_STEPS * 1e3
+        log(f"[model3d rofi] {str(dtype)[6:]} {s.mesh2d.nc} triangles x "
+            f"{s.n_layers} layers ({s.mesh2d.nc * 3} columns), LeapFrogAM3 "
+            f"+ GLS + Smagorinsky, dt {s.dt:g} s: {ROFI_STEPS} steps through "
+            f"iterate(update_forcings) {t:.2f} s = {ms[dtype]:.2f} ms/step; "
+            f"{launches_text(n, ROFI_STEPS)}")
+        log(f"[model3d rofi] {str(dtype)[6:]} salinity {lo:.4f}..{hi:.4f} "
+            f"(bound -0.01..32.01), freshwater volume {fw0:.6e} -> "
+            f"{fw1:.6e} m^3 (change {drift:+.3e}"
+            + (", bound 0.05" if dtype == torch.float64 else "") +
+            f"), max|uv_3d| {float(state['uv_3d'].abs().max()):.4e} m/s, "
+            f"tke {field_range(state['tke_3d'])}, nu_v "
+            f"{field_range(state['nu_v_3d'])}; monitors: {monitor_text(s)}; "
+            f"card: {smi}")
+    return total, ms[torch.float32]
+
+
+def phase_model3d_estuary(smi):
+    """ROFI's options at the bench's width (48 x 48 x 12, 4,608 columns),
+    f32: 1 warm-up and 20 timed steps through ``iterate(update_forcings=
+    ...)``, the tide set every step."""
+    dev = torch.device("cuda")
+    s, forcing, n_dofs = estuary(dev, torch.float32)
+    o = s.options
+    _, t_warm = sync_time(lambda: s.iterate(update_forcings=forcing))
+    o.simulation_export_time = EST_STEPS * s.dt
+    o.simulation_end_time = s.simulation_time + EST_STEPS * s.dt
+    reset_counts()
+    _, t = sync_time(lambda: s.iterate(update_forcings=forcing))
+    n = counts()
+    state = s._get_state()
+    check_finite("model3d estuary", state)
+    check_launches("model3d estuary", n, EST_STEPS,
+                   TRIDIAG_PER_STEP["estuary"])
+    salt = state["salt_3d"]
+    lo, hi = float(salt.min()), float(salt.max())
+    if s.iteration != EST_STEPS + 1 or not (lo > -0.01 and hi < 32.01):
+        raise AssertionError(f"model3d estuary: {s.iteration} steps, "
+                             f"salinity {lo}..{hi}")
+    ms = t / EST_STEPS * 1e3
+    log(f"[model3d estuary] f32 {s.mesh2d.nc} triangles x {s.n_layers} "
+        f"layers ({s.mesh2d.nc * 3} columns, 2 km), LeapFrogAM3 + GLS + "
+        f"Smagorinsky + CG1 sponge, 2 tracers on "
+        f"their own paths, dt {s.dt:g} s: {n_dofs} 3D DOF; warm-up step "
+        f"{t_warm * 1e3:.1f} ms; {EST_STEPS} steps through "
+        f"iterate(update_forcings) {ms:.2f} ms/step, "
+        f"{n_dofs * EST_STEPS / t:.4e} DOF*steps/s; "
+        f"{launches_text(n, EST_STEPS)}")
+    log(f"[model3d estuary] salinity {lo:.4f}..{hi:.4f} (bound "
+        f"-0.01..32.01), temperature {field_range(state['temp_3d'])}, max|"
+        f"elev| {float(state['elev'].abs().max()):.4e} m, max|uv_3d| "
+        f"{float(state['uv_3d'].abs().max()):.4e} m/s, nu_v "
+        f"{field_range(state['nu_v_3d'])}; every state field finite; "
+        f"monitors: {monitor_text(s)}; card: {smi}")
+    run_profile("profile3d_estuary", "[model3d estuary profile]")
+    return n, ms
+
+
+def phase_model3d_couplings(smi):
+    """The bench's 3D workload at full width under each coupling of this
+    slice: 1 warm-up and 5 timed steps each."""
+    dev = torch.device("cuda")
+    total = {k: 0 for k in KERNELS}
+    for name in COUPLINGS:
+        s, state0, f, n_dofs = coupling_workload(name, dev, torch.float32)
+        state, t_warm = sync_time(lambda: s._step(state0, f, {}))
+        reset_counts()
+        out, t = sync_time(lambda: s.advance_n(state, f, {}, COUPLING_STEPS))
+        n = counts()
+        check_finite(f"model3d couplings {name}", out)
+        check_launches(f"model3d couplings {name}", n, COUPLING_STEPS,
+                       TRIDIAG_PER_STEP[name])
+        for k in KERNELS:
+            total[k] += n[k]
+        log(f"[model3d couplings] {name}: f32 {NX3}x{NY3}x{NZ3}, warm-up "
+            f"{t_warm * 1e3:.1f} ms; {COUPLING_STEPS} steps "
+            f"{t / COUPLING_STEPS * 1e3:.2f} ms/step; "
+            f"{launches_text(n, COUPLING_STEPS)}; state keys "
+            f"{len(out)}, every field finite; card: {smi}")
+    run_profile("profile3d_more", ("[model3d rofi profile]",
+                                   "[model3d couplings profile]"))
+    return total
+
+
+def profile3d_estuary():
+    """The profiler's view of one estuary step after 1 + 20, from a fresh
+    process (kernels built already)."""
+    phase_device()
+    dev = torch.device("cuda")
+    s, forcing, _ = estuary(dev, torch.float32)
+    forcing(0.0)
+    f, b = s._gather_swe_fields(), s._gather_bnd_sw()
+    out = s.advance_n(s._get_state(), f, b, EST_STEPS + 1)
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    show_step_profile("[model3d estuary profile]", "one step",
+                      lambda: s._step(out, f, b))
+
+
+def profile3d_more():
+    """The profiler's view of one ROFI step and of one step of each
+    coupling, each after 3 steps, from a fresh process."""
+    phase_device()
+    dev = torch.device("cuda")
+    s, forcing, _ = rofi_solver(dev, torch.float32)
+    forcing(0.0)
+    f, b = s._gather_swe_fields(), s._gather_bnd_sw()
+    out = s.advance_n(s._get_state(), f, b, 3)
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    show_step_profile("[model3d rofi profile]", "one step",
+                      lambda: s._step(out, f, b))
+    for name in COUPLINGS:
+        s, state0, f, _ = coupling_workload(name, dev, torch.float32)
+        out = s.advance_n(state0, f, {}, 3)
+        show_step_profile("[model3d couplings profile]", f"{name}, one step",
+                          lambda: s._step(out, f, {}))
+
+
+def parity_cases(nx):
+    """The f64 GPU-against-CPU cases of phase 7: ``tag -> (make(device),
+    steps, tridiag launches a step)``, ``make`` returning ``(solver,
+    state, fields, bnd)``."""
+    def bench(make):
+        def build(dev):
+            s, state, f, _ = make(dev, torch.float64, nx, nx)
+            return s, state, f, {}
+        return build
+
+    def est(dev):
+        s, forcing, _ = estuary(dev, torch.float64, n=8, nz=4)
+        forcing(0.0)
+        return (s, s._get_state(), s._gather_swe_fields(),
+                s._gather_bnd_sw())
+
+    def rofi(dev):
+        # ROFI at coarse 16 with 2 layers, from a stably stratified start
+        # (2 psu fresher at the top): the example's start is uniform in
+        # the vertical, where N^2 is roundoff and the closure's psi source
+        # picks its c3 by its sign (a relative change of 1e-15 there moves
+        # nu_v by ~4e-5 of its scale; here by 1e-13 after three steps)
+        s, forcing, _ = rofi_solver(dev, torch.float64, coarse=16.0,
+                                    layers=2, steps=3)
+        sig = torch.as_tensor(s.extruded.sigma_np, dtype=torch.float64,
+                              device=dev)
+        sig_n = torch.stack([sig[:-1], sig[1:]], dim=-1)
+        s.fields.salt_3d.data = s.fields.salt_3d.data + 2.0 * (1 - sig_n)
+        forcing(0.0)
+        return (s, s._get_state(), s._gather_swe_fields(),
+                s._gather_bnd_sw())
+
+    cases = {"": (bench(workload3d), 1, 2),
+             " gls": (bench(workload3d_gls), 3, 4),
+             " gls advected": (bench(
+                 lambda *a: workload3d_gls(*a, advect=True)), 3, 4),
+             " estuary": (est, 3, TRIDIAG_PER_STEP["estuary"]),
+             " rofi": (rofi, 3, TRIDIAG_PER_STEP["rofi"])}
+    for name in COUPLINGS:
+        cases[f" {name}"] = (bench(
+            lambda d, dt, a, b, name=name: coupling_workload(name, d, dt, a,
+                                                             b)),
+            3, TRIDIAG_PER_STEP[name])
+    return cases
 
 
 def phase_model_ssprk33(smi):
@@ -1441,12 +1989,19 @@ def main():
     name = phase_device()
     smi = card()
     log(f"[device] nvidia-smi: {smi}")
+    t0 = time.perf_counter()
     phase_build()
     phase_kernel_ragged()
     phase_kernel_tridiag_ragged()
+    log(f"[phases 2-3, ragged cases] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     # each kernel at the shapes the port runs it at, the 3D step's first
+    coords, cells, markers = rofi_mesh_arrays()
+    rofi = Mesh2d(coords, cells, boundary_markers=markers,
+                  device=torch.device("cuda"), dtype=torch.float64)
     ring = [(f"nc={NX3 * NY3 * 2}", phase_kernel_ring(NX3, NY3, True)),
-            (f"nc={NX * NY * 2}", phase_kernel_ring(NX, NY, False))]
+            (f"nc={NX * NY * 2}", phase_kernel_ring(NX, NY, False)),
+            (f"nc={rofi.nc} (ROFI)", phase_kernel_ring(0, 0, False, rofi))]
     cols = NX3 * NY3 * 2 * 3  # (cell, node) columns of the 3D mesh
     rows = NZ3 + 1
     # the velocity solve as the step makes it first, then the tracer
@@ -1457,7 +2012,13 @@ def main():
         (f"{cols}x{rows} x2 shared", phase_kernel_tridiag(cols, rows, 2)),
         (f"{cols}x{rows}", phase_kernel_tridiag(cols, rows)),
         (f"{2 * cols}x{rows}", phase_kernel_tridiag(2 * cols, rows)),
-        ("4096x300", phase_kernel_tridiag(4096, 300))]}
+        ("4096x300", phase_kernel_tridiag(4096, 300)),
+        # the ROFI example's solves: 870 triangles x 3 nodes, 12 layers
+        (f"{ROFI_COLS}x{rows} x2 shared (ROFI)",
+         phase_kernel_tridiag(ROFI_COLS, rows, 2)),
+        (f"{ROFI_COLS}x{rows} (ROFI)",
+         phase_kernel_tridiag(ROFI_COLS, rows))]}
+    log(f"[phase 3, the port's shapes] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     n2, s2 = phase_slice2d(smi)
     phase_parity2d()
@@ -1487,6 +2048,15 @@ def main():
         for k in KERNELS:
             ng[k] += n[k]
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    # this slice's paths, each with its counts set to 0 just before it
+    new = {}
+    for key, phase in (("rofi", phase_model3d_rofi),
+                       ("estuary", phase_model3d_estuary),
+                       ("couplings", phase_model3d_couplings)):
+        t0 = time.perf_counter()
+        out = phase(smi)
+        new[key] = out[0] if isinstance(out, tuple) else out
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -1494,10 +2064,14 @@ def main():
         main_shape = shapes[k][0][1][(k, torch.float32)]
         row = {"name": k, "route": "cuda", "source": SOURCES[k][0],
                "replaces": SOURCES[k][1],
-               "launches": n3[k] + n2[k] + nm[k] + ng[k],
+               "launches": n3[k] + n2[k] + nm[k] + ng[k]
+               + sum(v[k] for v in new.values()),
                "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k],
                                     "flowsolver2d": nm[k],
-                                    "flowsolver3d_gls": ng[k]},
+                                    "flowsolver3d_gls": ng[k],
+                                    "rofi": new["rofi"][k],
+                                    "estuary": new["estuary"][k],
+                                    "couplings3d": new["couplings"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1521,5 +2095,9 @@ if __name__ == "__main__":
         profile3d()
     elif sys.argv[1:] == ["profile3d_gls"]:
         profile3d_gls()
+    elif sys.argv[1:] == ["profile3d_estuary"]:
+        profile3d_estuary()
+    elif sys.argv[1:] == ["profile3d_more"]:
+        profile3d_more()
     else:
         main()

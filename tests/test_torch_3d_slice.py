@@ -29,7 +29,7 @@ from thetis_tpu.utils.coordsys import (  # noqa: E402
 from thetis_tpu_torch import config as tconfig  # noqa: E402
 from thetis_tpu_torch.interop import (  # noqa: E402
     STATE3D_KEYS, flowsolver3d_from_numpy, state3d_from_numpy,
-    state3d_to_numpy)
+    state3d_keys, state3d_to_numpy)
 from thetis_tpu_torch.kernels import ringmv, tridiag  # noqa: E402
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from thetis_tpu_torch.utils.coordsys import (  # noqa: E402
@@ -203,20 +203,54 @@ def test_state3d_interop_roundtrip(run):
         state3d_from_numpy(s, "cpu", F64)
 
 
+#: options the port took on after this slice (each selects code of its
+#: own), with the boundary conditions a case sets
+PORTED = {
+    "leapfrog": dict(timestepper_type="LeapFrogAM3"),
+    "smagorinsky": dict(use_smagorinsky_viscosity=True),
+    "fixed_mesh": dict(use_ale_moving_mesh=False),
+    "quadratic_head": dict(use_quadratic_pressure=True),
+    "quadratic_density": dict(use_quadratic_density=True),
+    "no_modesplit": dict(use_modesplit_2d=False),
+    "tracer_source": dict(temperature_source_3d=1e-6),
+    "viscosity_field": dict(horizontal_viscosity="dg_field"),
+    "bc_3d": {},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_options_step(name):
+    """One CPU step under each option: finite fields, and the state's key
+    set that ``interop.state3d_keys`` gives for the options."""
+    from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
+
+    options = dict(PORTED[name])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tconfig.physical_constants, "rho0", 1020.0)
+        tm, ts = port_solver({k: v for k, v in options.items()
+                              if v != "dg_field"})
+        if name == "viscosity_field":
+            ts.options.horizontal_viscosity = Function(
+                FunctionSpace(tm, "DG", 1),
+                data=torch.full((tm.nc, 3), 40.0, dtype=F64))
+        if name == "bc_3d":
+            ts.bnd_functions["temp"] = {1: {"value": 10.0}}
+            ts.bnd_functions["momentum"] = {1: {"symm": None}}
+        ts.initialize()
+        ts.assign_initial_conditions(temp=bench_temperature(tm))
+        state = ts._get_state()
+        out = ts._step(state, ts._gather_swe_fields(), ts._gather_bnd_sw())
+    assert tuple(sorted(out)) == tuple(sorted(state)) == state3d_keys(
+        ts.options)
+    for k, v in out.items():
+        assert bool(torch.isfinite(v).all()), k
+    assert float((out["temp_3d"] - state["temp_3d"]).abs().max()) > 0
+
+
 #: options that select code the port does not have, with the ROADMAP item
 #: the error must name
 UNPORTED = {
-    "leapfrog": (dict(timestepper_type="LeapFrogAM3"), "A7"),
-    "smagorinsky": (dict(use_smagorinsky_viscosity=True), "A7"),
-    "fixed_mesh": (dict(use_ale_moving_mesh=False), "A7"),
-    "quadratic_head": (dict(use_quadratic_pressure=True), "A7"),
-    "quadratic_density": (dict(use_quadratic_density=True), "A7"),
-    "no_modesplit": (dict(use_modesplit_2d=False), "A7"),
-    "tracer_source": (dict(temperature_source_3d=1e-6), "A7"),
-    "viscosity_field": (dict(horizontal_viscosity=np.full(
-        (NX * NY * 2, 3), 40.0)), "A7c"),
     "exports": (dict(no_exports=False), "A10"),
-    "bc_3d": (None, "A7"),
 }
 
 
@@ -224,8 +258,6 @@ UNPORTED = {
 def test_unported_options_raise(name):
     options, item = UNPORTED[name]
     _, ts = port_solver(options)
-    if name == "bc_3d":
-        ts.bnd_functions["temp"] = {1: {"value": 10.0}}
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
         ts.initialize()
 

@@ -15,9 +15,12 @@ Terms:
 and :func:`vertical_viscosity_implicit`, the implicit column solve of the
 vertical viscosity (both components in one tridiagonal launch).
 
-Open-boundary momentum conditions are not ported yet (ROADMAP A7): the
-equation raises when any are given, and every boundary facet is an
-impermeable wall.
+Boundaries: a marker without a condition is an impermeable wall; an open
+marker takes the 3D momentum vocabulary ``{'uv': value}`` (the external
+velocity: a vector or a (nc, 3, nz, 2, 2) field), ``{'un': value}`` (its
+normal component: a scalar or a (nc, 3, nz, 2) field) or ``{'symm':
+None}`` (external = internal).  The advective flux there is
+``avg(uv) avg(un)``; ``uv`` and ``un`` also enter the viscosity weakly.
 """
 import torch
 
@@ -33,11 +36,7 @@ def _is_scalar(v):
 
 class MomentumEquation3D(EquationBase):
     def __init__(self, mesh2d, asm3d, options, bnd_conditions=None):
-        if bnd_conditions:
-            raise NotImplementedError(
-                "3D momentum boundary conditions are not ported to "
-                "thetis_tpu_torch yet (ROADMAP A7)")
-        super().__init__(mesh2d, asm3d.asm2d, None)
+        super().__init__(mesh2d, asm3d.asm2d, bnd_conditions)
         self.asm3d = asm3d
         self.options = options
         self.use_lf = bool(getattr(options, "use_lax_friedrichs_velocity",
@@ -106,6 +105,19 @@ class MomentumEquation3D(EquationBase):
         B["vfacet"].add(
             torch.stack([contrib, torch.zeros_like(contrib)], dim=1)
             * ml[:, None])
+        # open boundaries: the external state of the marker's condition,
+        # flux = avg(uv) avg(un)
+        for m in self.open_markers:
+            keys = self.bnd_keys.get(m)
+            if keys is None:
+                continue
+            uv_ext = self._bnd_uv_ext(c, m, keys, uv0, n)
+            un_av_b = 0.5 * (un0 + (uv_ext * n).sum(-1))
+            contrib = -0.5 * (uv0 + uv_ext) * un_av_b[..., None]
+            mk = self.marker_masks[m].reshape(-1, 1, 1, 1, 1)
+            B["vfacet"].add(
+                torch.stack([contrib, torch.zeros_like(contrib)], dim=1)
+                * mk[:, None])
 
     def _t_vadv(self, c, B):
         """Vertical momentum advection."""
@@ -146,6 +158,25 @@ class MomentumEquation3D(EquationBase):
             f = self.asm3d.asm2d.cell_values(
                 f[self.mesh.cells])[:, None, :, None]  # (nc, 1, nq, 1)
         B["cell"].add(torch.stack([f * uv[..., 1], -f * uv[..., 0]], dim=-1))
+
+    def _bnd_uv_ext(self, c, m, keys, uv_b, n):
+        """The external velocity at open marker ``m``: ``uv`` (the full
+        vector), ``un`` (the normal component) or ``symm`` (the internal
+        trace ``uv_b``)."""
+        vals = c["bnd_values"].get(m, {})
+        if "uv" in keys:
+            v = self.asm.as_tensor(vals["uv"])
+            if v.dim() <= 1:
+                return v.expand(uv_b.shape)
+            return self.asm3d.facet_traces(v)[:, 0]
+        if "un" in keys:
+            v = self.asm.as_tensor(vals["un"])
+            if v.dim() == 0:
+                un_ext = v.expand(uv_b.shape[:-1])
+            else:
+                un_ext = self.asm3d.facet_traces(v)[:, 0]
+            return un_ext[..., None] * n
+        return uv_b
 
     def _nu_eval(self, nu):
         """Viscosity at cell quad points and facet traces: a scalar, or a
@@ -196,6 +227,29 @@ class MomentumEquation3D(EquationBase):
         mi2 = self.mask_int.reshape(-1, 1, 1, 1, 1, 1)
         B["vfacet_grad"].add(
             torch.stack([0.5 * SJ, 0.5 * SJ], dim=1) * mi2[:, None])
+        # open boundaries whose condition prescribes uv or un: the
+        # external data enter weakly (Dirichlet by Nitsche)
+        stress_bn = (stress_tr[:, 0] * n[..., None, :]).sum(-1)
+        sigma_b = sigma[:, 0].reshape(-1, 1, 1, 1, 1)
+        nu0 = nu_tr if scalar else nu_tr[:, 0][..., None, None]
+        for m in self.open_markers:
+            keys = self.bnd_keys.get(m)
+            if keys is None or not ({"uv", "un"} & keys):
+                continue
+            uv_ext = self._bnd_uv_ext(c, m, keys, uv0, n)
+            if "un" in keys:
+                delta_uv = ((uv0 - uv_ext) * n).sum(-1)[..., None] * n
+            else:
+                delta_uv = uv0 - uv_ext
+            SJb = nu0 * delta_uv[..., :, None] * n[..., None, :]
+            SJbn = (SJb * n[..., None, :]).sum(-1)
+            mk = self.marker_masks[m].reshape(-1, 1, 1, 1, 1)
+            contrib = (-sigma_b * SJbn + stress_bn) * mk
+            B["vfacet"].add(
+                torch.stack([contrib, torch.zeros_like(contrib)], dim=1))
+            SJb = SJb * mk[..., None]
+            B["vfacet_grad"].add(
+                torch.stack([SJb, torch.zeros_like(SJb)], dim=1))
 
     def _t_source(self, c, B):
         src = c["fields"].get("momentum_source_3d")
@@ -209,6 +263,7 @@ class MomentumEquation3D(EquationBase):
             raise ValueError("MomentumEquation3D.residual needs geom")
         c = self.build_context(solution, fields, geom)
         c["_dofs"] = solution["uv_3d"]
+        c["bnd_values"] = bnd_values or {}
         B = {k: Bucket() for k in (
             "cell", "grad", "gradz", "vfacet", "vfacet_grad",
             "hfacet_below", "hfacet_above")}

@@ -16,9 +16,12 @@ scalar residual over a packed component axis, here every term carries
 that axis explicitly (a scalar tracer runs as k = 1).  Velocity fields:
 uv_3d ``(nc, 3, nz, 2, 2)``, w ``(nc, 3, nz, 2)``.
 
-Open-boundary tracer values are not ported yet (ROADMAP A7): the
-equation raises when any boundary condition is given, and every boundary
-facet lets the interior value out and nothing in.
+Boundaries: every boundary facet lets the interior value out; on a
+marker with ``{'value': v}`` (or ``{'value-<label>': v}``, which wins) the
+external value ``v`` (a scalar or a (nc, 3, nz, 2) field) comes in where
+the flow enters.  A marker whose value is absent from the call's
+``bnd_values`` keeps the interior value (the uniform-field drift is
+evaluated so).
 """
 import torch
 
@@ -30,11 +33,7 @@ __all__ = ["TracerEquation3D"]
 class TracerEquation3D(EquationBase):
     def __init__(self, mesh2d, asm3d, options, bnd_conditions=None,
                  label="salt_3d"):
-        if bnd_conditions:
-            raise NotImplementedError(
-                "3D tracer boundary conditions are not ported to "
-                "thetis_tpu_torch yet (ROADMAP A7)")
-        super().__init__(mesh2d, asm3d.asm2d, None)
+        super().__init__(mesh2d, asm3d.asm2d, bnd_conditions)
         self.asm3d = asm3d
         self.options = options
         self.label = label
@@ -92,9 +91,25 @@ class TracerEquation3D(EquationBase):
             jmp = c1 - c0
             B["vfacet"].add(
                 torch.stack([gamma * jmp, -gamma * jmp], dim=1) * mi[:, None])
-        # boundary: outflow of the internal value (no inflow value given)
+        # boundary: outflow of the internal value; where a 'value' is
+        # given, the upwinded external value enters on inflow
+        c_ext = c0
+        bnd_values = c["bnd_values"]
+        for m in self.open_markers:
+            keys = self.bnd_keys.get(m, ())
+            key = (f"value-{self.label}" if f"value-{self.label}" in keys
+                   else "value")
+            if key not in keys or key not in bnd_values.get(m, {}):
+                continue
+            val = self.asm.as_tensor(bnd_values[m][key])
+            if val.dim() >= 3:                    # a (nc, 3, nz, 2) field
+                v_m = self.asm3d.facet_traces(val)[:, 0][..., None]
+            else:
+                v_m = val.expand(c0.shape)
+            mk = self.marker_masks[m].reshape(-1, 1, 1, 1, 1)
+            c_ext = torch.where(mk, v_m, c_ext)
         s0 = 0.5 * (torch.sign(un0) + 1.0)[..., None]
-        c_up_b = c0 * s0 + c0 * (1 - s0)
+        c_up_b = c0 * s0 + c_ext * (1 - s0)
         fl = (c_up_b * un0[..., None]
               * self.mask_bnd.reshape(-1, 1, 1, 1, 1))
         B["vfacet"].add(torch.stack([-fl, torch.zeros_like(fl)], dim=1))
@@ -153,13 +168,23 @@ class TracerEquation3D(EquationBase):
         B["hfacet_above"].add(pen)
 
     def _t_source(self, c, B):
-        """Interior source: a scalar or a (nc, 3, nz, 2) dof field, the
-        same for every packed component."""
+        """Interior source, the same for every packed component: a scalar,
+        a (nc, 3, nz, 2) dof field (the layout of the ``*_source_3d``
+        options, tried first) or a (nc, nz, nq, nqv) quadrature field."""
         src = c["fields"].get(f"source-{self.label}")
         if src is None:
             return
         if isinstance(src, torch.Tensor) and src.dim() == 4:
-            src = self.asm3d.cell_values(src)[..., None]
+            qshape = tuple(c["c_q"].shape[:-1])
+            if src.shape[1] == 3 and src.shape[3] == 2 \
+                    and src.shape[2] == self.asm3d.nz:
+                src = self.asm3d.cell_values(src)
+            elif tuple(src.shape) != qshape:
+                raise ValueError(
+                    f"4-D tracer source shape {tuple(src.shape)} matches "
+                    f"neither the dof layout (nc, 3, nz, 2) nor the quad "
+                    f"layout {qshape}")
+            src = src[..., None]
         B["cell"].add(src * torch.ones_like(c["c_q"]))
 
     # -- assembly --------------------------------------------------------
@@ -169,14 +194,11 @@ class TracerEquation3D(EquationBase):
         (nc, 3, nz, 2, k)."""
         if geom is None:
             raise ValueError("TracerEquation3D.residual needs geom")
-        if bnd_values:
-            raise NotImplementedError(
-                "3D tracer boundary values are not ported to "
-                "thetis_tpu_torch yet (ROADMAP A7)")
         u = solution[self.label]
         packed = u.dim() == 5
         cdofs = u if packed else u[..., None]
         c = self.build_context(cdofs, fields, geom)
+        c["bnd_values"] = bnd_values or {}
         B = {k: Bucket() for k in (
             "cell", "grad", "gradz", "vfacet", "hfacet_below",
             "hfacet_above")}

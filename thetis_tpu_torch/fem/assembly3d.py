@@ -19,8 +19,9 @@ Quadrature-point convention: ``(nc, nz, nq, nqv[, k])`` for cells,
 The reference unrolls every contraction into host-scalar multiply-adds
 (the TPU pads tensors whose two minor axes are tiny onto (8, 128)
 tiles); here each one is an einsum over the tabulations, with the same
-outputs.  The quadratic (P2) head tabulations of the reference are not
-ported: only ``use_quadratic_pressure`` reads them.
+outputs.  The quadratic tabulations (vertical P2 at the same Gauss
+points, horizontal P2 at the same 2D quadrature points) serve the
+quadratic baroclinic head of ``use_quadratic_pressure``.
 """
 import numpy as np
 import torch
@@ -96,6 +97,30 @@ class Assembler3D:
         # (nc, nq, 3, 2) physical gradients of the horizontal basis
         self.gphi = torch.einsum("qdj,cji->cqdi", asm2d.space.dphi,
                                  mesh2d.Jinv)
+        # quadratic vertical Lagrange basis at the nodes {0, 1/2, 1} at the
+        # same 2-point Gauss rule: the int-PG integrand (quadratic head x
+        # P1 test) is cubic in s, which degree-3 Gauss integrates exactly
+        self._psi2_h = np.stack([2 * (t - 0.5) * (t - 1.0), 4 * t * (1 - t),
+                                 2 * t * (t - 0.5)], axis=1)    # (nqv, 3)
+        self._dpsi2_h = np.stack([4 * t - 3.0, 4.0 - 8 * t, 4 * t - 1.0],
+                                 axis=1)                        # (nqv, 3)
+        # P2 horizontal Lagrange basis at the same 2D quadrature points,
+        # from the P1 one (its rows are the barycentric coordinates of the
+        # points, its gradients theirs).  Node order: the 3 vertices, then
+        # the edge midpoints opposite vertex 0, 1, 2 (m12, m02, m01)
+        lam = np.asarray(asm2d.space._tab_np["phi"])           # (nq, 3)
+        dlam = np.asarray(asm2d.space._tab_np["dphi"])         # (nq, 3, 2)
+        phi2 = [lam[:, i] * (2 * lam[:, i] - 1) for i in range(3)]
+        dphi2 = [dlam[:, i] * (4 * lam[:, i] - 1)[:, None] for i in range(3)]
+        for j, k in ((1, 2), (0, 2), (0, 1)):
+            phi2.append(4 * lam[:, j] * lam[:, k])
+            dphi2.append(4 * (lam[:, j, None] * dlam[:, k]
+                              + lam[:, k, None] * dlam[:, j]))
+        self._phi2d_h = np.stack(phi2, axis=1)                 # (nq, 6)
+        self._dphi2d_h = np.stack(dphi2, axis=1)               # (nq, 6, 2)
+        #: ``cell_grads``' tabulation pairs of the quadratic head space
+        self.p2_vtabs = (f(self._psi2_h), f(self._dpsi2_h))
+        self.p2_htabs = (f(self._phi2d_h), f(self._dphi2d_h))
 
     # -- geometry --------------------------------------------------------
     def layer_geometry(self, z_interfaces):
@@ -125,14 +150,23 @@ class Assembler3D:
         return torch.einsum("qd,vp,cdlp...->clqv...", self.asm2d.space.phi,
                             self.psi, u)
 
-    def cell_grads(self, u, geom):
+    def cell_grads(self, u, geom, vtabs=None, htabs=None):
         """Full physical gradient (nc, nz, nq, nqv[, k], 3) with components
-        (d/dx, d/dy, d/dz) of (nc, 3, nz, 2[, k]) dofs."""
+        (d/dx, d/dy, d/dz) of (nc, nh, nz, npp[, k]) dofs.  ``vtabs =
+        (psi, dpsi)`` selects the vertical basis (default P1, 2 nodes;
+        ``self.p2_vtabs`` the quadratic one), ``htabs = (phi, dphi)`` with
+        reference gradients the horizontal one (default P1DG;
+        ``self.p2_htabs`` P2DG, 6 nodes)."""
         extra = u.ndim - 4
-        sp = self.asm2d.space
+        psi, dpsi = (self.psi, self.dpsi) if vtabs is None else vtabs
+        if htabs is None:
+            phi, gphi = self.asm2d.space.phi, self.gphi
+        else:
+            phi = htabs[0]
+            gphi = torch.einsum("qdj,cji->cqdi", htabs[1], self.mesh.Jinv)
         # horizontal derivative at fixed s, already physical
-        gh = torch.einsum("cqdi,vp,cdlp...->clqv...i", self.gphi, self.psi, u)
-        dds = torch.einsum("qd,vp,cdlp...->clqv...", sp.phi, self.dpsi, u)
+        gh = torch.einsum("cqdi,vp,cdlp...->clqv...i", gphi, psi, u)
+        dds = torch.einsum("qd,vp,cdlp...->clqv...", phi, dpsi, u)
         dfdz = dds / _tail(geom["Delta_q"][..., None], extra)
         dzdx = _mid(geom["dzdx_q"], 4, extra)
         return torch.cat([gh - dfdz[..., None] * dzdx, dfdz[..., None]],

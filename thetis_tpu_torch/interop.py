@@ -15,22 +15,38 @@ __all__ = ["state_from_numpy", "state_to_numpy", "fields_from_numpy",
            "flowsolver3d_from_numpy", "flowsolver2d_from_reference"]
 
 _STATE_KEYS = ("elev", "uv")
-#: the 3D step's state dict (``FlowSolver._get_state``) without
-#: turbulence, and the lagged eddy coefficients it gains with it
+#: the 3D step's state dict (``FlowSolver._get_state``) under the default
+#: options; ``state3d_keys`` gives it under others
 STATE3D_KEYS = ("elev", "psi_3d", "salt_3d", "split_residual", "temp_3d",
                 "tke_3d", "uv", "uv_3d")
+#: the lagged eddy coefficients of ``use_turbulence``
 STATE3D_TURBULENCE_KEYS = ("mu_v_3d", "nu_v_3d")
+#: the LeapFrogAM3 history, and that of tke/psi under
+#: ``use_turbulence_advection``
+STATE3D_LEAPFROG_KEYS = ("salt_lf_old", "temp_lf_old", "uv_lf_old")
+STATE3D_LEAPFROG_TURBULENCE_KEYS = ("psi_lf_old", "tke_lf_old")
 
 
 def state3d_keys(options=None):
     """The sorted keys of the 3D step state under ``options`` (a
     ``ModelOptions3d``, a dict of options, or None for the defaults)."""
     if isinstance(options, dict):
-        turb = options.get("use_turbulence", False)
+        opt = options.get
     else:
-        turb = getattr(options, "use_turbulence", False)
-    return tuple(sorted(STATE3D_KEYS
-                        + (STATE3D_TURBULENCE_KEYS if turb else ())))
+        def opt(k, default):
+            return getattr(options, k, default)
+    turb = opt("use_turbulence", False)
+    leapfrog = str(opt("timestepper_type", "")) == "LeapFrogAM3"
+    keys = set(STATE3D_KEYS)
+    if not opt("use_modesplit_2d", True):
+        keys.discard("split_residual")
+    if turb:
+        keys.update(STATE3D_TURBULENCE_KEYS)
+    if leapfrog:
+        keys.update(STATE3D_LEAPFROG_KEYS)
+        if turb and opt("use_turbulence_advection", False):
+            keys.update(STATE3D_LEAPFROG_TURBULENCE_KEYS)
+    return tuple(sorted(keys))
 
 
 def _to_tensor(v, device, dtype):
@@ -103,13 +119,14 @@ _SUB_OPTIONS = ("swe_timestepper_options", "tracer_timestepper_options",
                 "sediment_model_options", "nh_model_options")
 
 
-def _option_value(v, device, dtype):
+def _option_value(v, device, dtype, mesh=None):
     """A reference option value in the port's terms: arrays (numpy or the
-    reference's device arrays, read through ``np.asarray``) and Function
-    data become tensors, Constants and NewtonParameters the port's own
-    classes, a ``GLSModelOptions`` the port's own by its attributes (all
-    plain numbers, switches and names); plain Python values pass
-    through."""
+    reference's device arrays, read through ``np.asarray``) become
+    tensors, a Function the port's Function of the same family on
+    ``mesh`` (its data alone without one), Constants and NewtonParameters
+    the port's own classes, a ``GLSModelOptions`` the port's own by its
+    attributes (all plain numbers, switches and names); plain Python
+    values pass through."""
     from .equations.turbulence import GLSModelOptions
     from .solvers.newton import NewtonParameters
     from .utils.constant import Constant
@@ -127,7 +144,13 @@ def _option_value(v, device, dtype):
     if kind == "GLSModelOptions":
         return GLSModelOptions(**vars(v))
     if kind == "Function":
-        return _to_tensor(np.asarray(v.data), device, dtype)
+        data = _to_tensor(np.asarray(v.data), device, dtype)
+        if mesh is None:
+            return data
+        from .fem.functionspace import Function, FunctionSpace
+        fs = v.function_space
+        return Function(FunctionSpace(mesh, fs.family, fs.degree,
+                                      dim=fs.dim), data=data)
     if hasattr(v, "__array__"):
         return _to_tensor(np.asarray(v), device, dtype)
     raise TypeError(f"cannot carry option value of type {kind} to the port")
@@ -176,19 +199,36 @@ def flowsolver2d_from_reference(ref, mesh2d):
 
 
 def flowsolver3d_from_numpy(mesh2d, bathymetry, n_layers, options,
-                            extrude_options=None):
+                            extrude_options=None, bnd_functions=None):
     """The port's :class:`~thetis_tpu_torch.model.flowsolver3d.FlowSolver`
     from numpy inputs, on ``mesh2d``'s device and dtype: ``options`` is
     the dict given to ``options.update`` (array values, such as a CG1
-    Coriolis field, become tensors; a reference ``GLSModelOptions`` or
-    ``NewtonParameters`` the port's own), ``bathymetry`` a scalar or an
-    array.  The reference's solver is built from the same dict with its
-    arrays passed through ``jnp.asarray``, so both compute the same
-    step."""
+    Coriolis field, become tensors; a reference ``Function``, such as a
+    CG1 viscosity, the port's Function of its family; a reference
+    ``GLSModelOptions`` or ``NewtonParameters`` the port's own),
+    ``bathymetry`` a scalar or an array, ``bnd_functions`` the
+    ``{'shallow_water' | 'momentum' | 'salt' | 'temp': {marker: {key:
+    value}}}`` boundary conditions (values: numbers, arrays, Constants,
+    Functions or None, converted as the options are).  The reference's
+    solver is built from the same description with its arrays passed
+    through ``jnp.asarray``, so both compute the same step."""
     from .model.flowsolver3d import FlowSolver
 
     dev, dt = mesh2d.device, mesh2d.dtype
-    opts = {k: _option_value(v, dev, dt) for k, v in options.items()}
-    return FlowSolver(mesh2d, bathymetry_from_numpy(bathymetry, dev, dt),
-                      n_layers, options=opts,
-                      extrude_options=extrude_options)
+    memo = {}
+
+    def conv(v):
+        # one port object for one reference object: a Function shared by
+        # several markers stays shared, so updating it reaches them all
+        if id(v) not in memo:
+            memo[id(v)] = (v, _option_value(v, dev, dt, mesh=mesh2d))
+        return memo[id(v)][1]
+
+    s = FlowSolver(mesh2d, bathymetry_from_numpy(bathymetry, dev, dt),
+                   n_layers, options={k: conv(v) for k, v in options.items()},
+                   extrude_options=extrude_options)
+    for which, specs in (bnd_functions or {}).items():
+        s.bnd_functions[which] = {
+            int(m): {k: conv(v) for k, v in spec.items()}
+            for m, spec in specs.items()}
+    return s

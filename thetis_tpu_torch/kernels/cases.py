@@ -18,8 +18,10 @@ the 3D step's 13,824 and one over its 27,648), for columns of one row, two
 rows, the 3D step's 13, an even 14 (a padded tile) and 300 (a tile that
 needs more than 48 KB of shared memory in f32 and the general kernel in
 f64), with one right-hand side of the coefficients' shape and with two
-sharing each coefficient column; and the Kato-Phillips column of the GLS
-validation run (36 columns of 21 rows: a quarter of a tile).
+sharing each coefficient column; the Kato-Phillips column of the GLS
+validation run (36 columns of 21 rows: a quarter of a tile); and the Rhine
+ROFI example's solves (870 triangles x 3 nodes = 2,610 columns of 12
+layers + 1 rows: 40 full tiles and one of 50 columns).
 """
 import numpy as np
 
@@ -31,7 +33,8 @@ RAGGED_NC = (1, 31, 33, 4607, 102401)
 RAGGED_TRIDIAG = tuple((bc, n, nrhs)
                        for bc in (1, 63, 65, 13823, 27649)
                        for n in (1, 2, 13, 14, 300)
-                       for nrhs in (1, 2)) + ((36, 21, 1), (36, 21, 2))
+                       for nrhs in (1, 2)) + ((36, 21, 1), (36, 21, 2),
+                                              (2610, 13, 1), (2610, 13, 2))
 
 
 def ragged_case(nc, seed=0):

@@ -1,40 +1,46 @@
 r"""FlowSolver — the 3D baroclinic mode-split step.
 
 Port of ``thetis_tpu/model/flowsolver3d.py``: a 2D barotropic mode (the
-reduced :class:`ModeSplit2DEquations`, stepped by the assembled
-semi-implicit CrankNicolson) coupled to the 3D momentum of the deviation
-velocity, packed tracer transport, linear or Jackett EOS -> baroclinic
-head -> internal pressure gradient, the weak flux-consistent vertical
-velocity, the vertex limiter and implicit vertical viscosity/diffusion on
-a sigma-layer ALE mesh.
+reduced :class:`ModeSplit2DEquations` forced by the lagged split residual
+or, with ``use_modesplit_2d=False``, the full
+:class:`ShallowWaterEquations` forced by the depth-averaged internal
+pressure gradient), stepped by the assembled semi-implicit CrankNicolson,
+coupled to the 3D momentum of the deviation velocity, tracer transport,
+linear or Jackett EOS -> baroclinic head (P1, or P2DG x P2 with
+``use_quadratic_pressure``) -> internal pressure gradient, the weak
+flux-consistent vertical velocity, Smagorinsky viscosity, the vertex
+limiter and implicit vertical viscosity/diffusion on a sigma-layer ALE
+mesh (or a fixed one, ``use_ale_moving_mesh=False``).
 
 Per step (``_step``): baroclinicity from the current state -> 2D CN solve
-forced by the lagged ``split_residual`` -> ALE geometry and mesh velocity
--> SSPRK22 ALE stages of uv_3d and of the packed tracers (each with the
-uniform "ones" consistency field) -> implicit vertical mixing (two
-tridiagonal launches: both velocity components, then each tracer) ->
-with ``use_turbulence`` the GLS closure on the mixed fields (two more
-launches: k and psi; its eddy coefficients enter the next step's mixing)
--> depth-average coupling.  A time loop is a Python loop over ``_step``
-(:meth:`FlowSolver.advance_n`), where the reference scans it.  With
-``dt_mode='split'`` the 2D mode is explicit: ``M_modesplit`` SSPRK33
-substeps at ``dt_2d`` in place of the CN solve.
+-> ALE geometry and mesh velocity -> the ALE stages of uv_3d and of the
+tracers (one forward stage, SSPRK22's two, or LeapFrogAM3's predictor and
+corrector) -> implicit vertical mixing (tridiagonal launches: both
+velocity components in one, then each tracer) -> with ``use_turbulence``
+the GLS closure on the mixed fields (two more launches: k and psi; its
+eddy coefficients enter the next step's mixing) -> depth-average
+coupling.  The tracers ride one packed residual with the uniform "ones"
+consistency field; with 3D tracer boundary values or sources each tracer
+advances alone, its uniform-field drift from a residual of its own.  A
+time loop is a Python loop over ``_step`` (:meth:`FlowSolver.advance_n`),
+where the reference scans it.  With ``dt_mode='split'`` the 2D mode is
+explicit: ``M_modesplit`` SSPRK33 substeps at ``dt_2d`` in place of the
+CN solve.
 
 Entered as the reference is: ``FlowSolver(mesh2d, depth, nz)``,
-``options.update({...})``, ``assign_initial_conditions(...)``,
-``iterate()`` (callbacks and the conservation monitors at every export,
+``options.update({...})``, ``bnd_functions``,
+``assign_initial_conditions(...)``, ``iterate(update_forcings=...)``
+(callbacks and the conservation monitors at every export,
 ``options.no_exports = True``); or, a step at a time, ``initialize()``,
-``_get_state()``, ``_gather_swe_fields()``, then
-``_step(state, swe_fields, {})``.
+``_get_state()``, ``_gather_swe_fields()``, ``_gather_bnd_sw()``, then
+``_step(state, swe_fields, bnd_sw)``.  The 3D boundary values
+(``bnd_functions['momentum' | 'salt' | 'temp']``) are read once, when the
+step is built, as in the reference; the 2D ones at every gather.
 
-Not ported yet, and raising ``NotImplementedError`` when selected: the
-LeapFrogAM3 stepper, Smagorinsky viscosity, a field-valued horizontal
-viscosity, the fixed-mesh mode, the quadratic head/density, the round-1
-(non mode-split) 2D coupling, tracer sources and the per-tracer path they
-need, 3D boundary conditions (ROADMAP A7); exporters
-(``no_exports=False``) and ``load_state`` (A10).
+Not ported yet, and raising ``NotImplementedError`` when selected:
+exporters (``no_exports=False``) and ``load_state`` (ROADMAP A10).
 The CG ``P1_2d`` space of the reference is not created: the step never
-uses it, and the port's function spaces are DG only.
+uses it.
 """
 import numpy as np
 import torch
@@ -44,11 +50,13 @@ from ..equations.eos import JackettEquationOfState, LinearEquationOfState
 from ..equations.limiter import VertexBasedP1DGLimiter3D
 from ..equations.momentum_3d import (MomentumEquation3D,
                                      vertical_viscosity_implicit)
-from ..equations.shallowwater_2d import ModeSplit2DEquations
+from ..equations.shallowwater_2d import (ModeSplit2DEquations,
+                                         ShallowWaterEquations)
 from ..equations.tracer_3d import TracerEquation3D
 from ..equations.turbulence import (GenericLengthScaleModel, GLSModelOptions,
                                     vdiff_implicit)
 from ..equations.utility3d import (BaroclinicHeadCalculator, DensitySolver,
+                                   SmagorinskyViscosity,
                                    VerticalVelocitySolver,
                                    expand_function_to_3d)
 from ..fem.assembly import DGAssembler
@@ -122,9 +130,14 @@ class ModelOptions3d(ModelOptions2d):
         self._freeze()
 
 
-def _unported(what, item="A7"):
+def _unported(what, item):
     return NotImplementedError(
         f"{what} is not ported to thetis_tpu_torch yet (ROADMAP {item})")
+
+
+def _lf_key(key):
+    """The LeapFrogAM3 history key of a tracer: salt_3d -> salt_lf_old."""
+    return key.replace("_3d", "_lf_old")
 
 
 class FlowSolver:
@@ -230,51 +243,34 @@ class FlowSolver:
     def _check_options(self):
         o = self.options
         ts = str(o.timestepper_type)
-        if ts == "LeapFrogAM3":
-            raise _unported("the LeapFrogAM3 3D stepper")
-        if ts not in ("CrankNicolson", "SSPRK22", "TwoStageRK"):
+        if ts not in ("CrankNicolson", "SSPRK22", "TwoStageRK",
+                      "LeapFrogAM3"):
             raise ValueError(f"unknown 3D time stepper {ts!r}")
         if str(o.dt_mode) not in ("3d", "2d", "split"):
             raise ValueError(f"unknown dt_mode {o.dt_mode!r}")
         if not o.no_exports:
             raise _unported("field exporters (options.no_exports=False)",
                             "A10")
-        visc = o.horizontal_viscosity
-        if isinstance(visc, Function):
-            visc = visc.data
-        if getattr(visc, "ndim", 0) > 0:
-            raise _unported("a field-valued horizontal_viscosity in the 3D "
-                            "momentum", "A7c")
-        checks = [
-            (o.use_smagorinsky_viscosity, "Smagorinsky viscosity"),
-            (not o.use_ale_moving_mesh, "the fixed-mesh mode"),
-            (o.use_quadratic_pressure or o.use_quadratic_density,
-             "the quadratic baroclinic head/density"),
-            (not o.use_modesplit_2d, "the non mode-split 2D coupling"),
-            (o.temperature_source_3d is not None
-             or o.salinity_source_3d is not None,
-             "3D tracer sources (the per-tracer path)"),
-            (any(self.bnd_functions.get(k) for k in
-                 ("momentum", "salt", "temp")),
-             "3D boundary conditions"),
-        ]
-        for bad, what in checks:
-            if bad:
-                raise _unported(what)
 
     def create_equations(self):
         self._check_options()
         if not hasattr(self, "fields"):
             self.create_fields()
         o = self.options
-        self.eq_sw = ModeSplit2DEquations(
+        bnd = self.bnd_functions
+        swe_cls = (ModeSplit2DEquations if o.use_modesplit_2d
+                   else ShallowWaterEquations)
+        self.eq_sw = swe_cls(
             self.mesh2d, self.asm, o,
             bathymetry=self._tensor(self.bathymetry_input),
-            bnd_conditions=self.bnd_functions.get("shallow_water", {}))
-        self.eq_momentum = MomentumEquation3D(self.mesh2d, self.asm3d, o)
+            bnd_conditions=bnd.get("shallow_water", {}))
+        self.eq_momentum = MomentumEquation3D(
+            self.mesh2d, self.asm3d, o, bnd_conditions=bnd.get("momentum"))
         self.eq_salt = TracerEquation3D(self.mesh2d, self.asm3d, o,
+                                        bnd_conditions=bnd.get("salt"),
                                         label="salt_3d")
         self.eq_temp = TracerEquation3D(self.mesh2d, self.asm3d, o,
+                                        bnd_conditions=bnd.get("temp"),
                                         label="temp_3d")
         if o.equation_of_state_type == "full":
             self.equation_of_state = JackettEquationOfState()
@@ -284,6 +280,9 @@ class FlowSolver:
         self.density_solver = DensitySolver(self.equation_of_state)
         self.bhc = BaroclinicHeadCalculator(self.asm3d)
         self.w_solver = VerticalVelocitySolver(self.asm3d, self.bathy_cell)
+        if o.use_smagorinsky_viscosity:
+            self.smagorinsky = SmagorinskyViscosity(
+                self.asm3d, cs=float(o.smagorinsky_coefficient))
         if o.use_limiter_for_tracers or o.use_limiter_for_velocity:
             self.tracer_limiter = VertexBasedP1DGLimiter3D(
                 self.mesh2d, self.n_layers)
@@ -481,6 +480,14 @@ class FlowSolver:
             f.uv_3d.data = self._tensor(uv_3d)
 
     # ------------------------------------------------------------------
+    def _bnd3(self, which):
+        """The 3D boundary values of ``bnd_functions[which]`` as tensors on
+        the mesh's device, read once (the reference captures them when its
+        step is built); a ``symm`` entry keeps its None."""
+        return {int(m): {k: None if v is None else self._tensor(v)
+                         for k, v in spec.items()}
+                for m, spec in (self.bnd_functions.get(which) or {}).items()}
+
     def _build_step(self):
         o = self.options
         dt = self.dt
@@ -496,6 +503,7 @@ class FlowSolver:
         gls = getattr(self, "gls", None)
         eq_tke = getattr(self, "eq_tke", None)
         eq_psi = getattr(self, "eq_psi", None)
+        smag = getattr(self, "smagorinsky", None)
         density_solver, bhc, w_solver = (self.density_solver, self.bhc,
                                          self.w_solver)
         limiter = getattr(self, "tracer_limiter", None)
@@ -511,63 +519,144 @@ class FlowSolver:
         z0_bot = float(o.bottom_roughness or 0.005)
         use_law_of_wall = o.use_bottom_friction and cd_opt is None
         ipg_scale = o.internal_pg_scalar
-        two_stage = str(o.timestepper_type) in ("SSPRK22", "TwoStageRK")
+        quad_p, quad_rho = o.use_quadratic_pressure, o.use_quadratic_density
+        use_ale = o.use_ale_moving_mesh
+        modesplit = o.use_modesplit_2d
+        ts_type = str(o.timestepper_type)
+        two_stage = ts_type in ("SSPRK22", "TwoStageRK")
+        leapfrog = ts_type == "LeapFrogAM3"
         sigma = ext.sigma
 
         def geometry(elev):
+            if not use_ale:
+                # fixed mesh: the 3D mesh stays at rest, the free surface
+                # moves in the 2D system only
+                elev = torch.zeros_like(elev)
             return asm3d.layer_geometry(ext.z_interfaces(bathy_cell, elev))
 
         def baroclinicity(state, geom):
             """density -> baroclinic head -> int_pg."""
-            rho = density_solver.solve(state["salt_3d"], state["temp_3d"])
-            int_pg = bhc.compute_int_pg(bhc.compute_head(rho, geom), geom)
+            if quad_rho:
+                rho_h = density_solver.solve_p2(
+                    state["salt_3d"], state["temp_3d"], horizontal=quad_p)
+            else:
+                rho_h = density_solver.solve(state["salt_3d"],
+                                             state["temp_3d"])
+            int_pg = bhc.compute_int_pg(
+                bhc.compute_head(rho_h, geom, quadratic=quad_p), geom)
             if ipg_scale is not None:
                 int_pg = float(ipg_scale) * int_pg
-            return rho, int_pg
+            return int_pg
 
+        # the uniform-field drift needs only the advective terms: the
+        # diffusion of a constant vanishes
+        adv_terms = frozenset(["HorizontalAdvectionTerm",
+                               "VerticalAdvectionTerm"])
         # the packed tracer transport: every solved tracer plus the
         # uniform "ones" consistency field ride a trailing component axis
         # through ONE residual evaluation (sources excluded: they would
         # leak into the ones component)
-        pack_terms = frozenset(
-            ["HorizontalAdvectionTerm", "VerticalAdvectionTerm",
-             "HorizontalDiffusionTerm", "VerticalDiffusionTerm"])
+        pack_terms = adv_terms | {"HorizontalDiffusionTerm",
+                                  "VerticalDiffusionTerm"}
 
         def pack_residual(cp, fields3, geom):
             return eq_salt.residual(pack_terms, {"salt_3d": cp},
                                     {"salt_3d": cp}, fields3, fields3, {},
                                     geom=geom)["salt_3d"]
 
+        bnd_mom = self._bnd3("momentum")
+        tracer_bnds = {"salt_3d": self._bnd3("salt"),
+                       "temp_3d": self._bnd3("temp")}
+        # the packed path assumes the same (no) boundary values and no
+        # source for every tracer; otherwise each tracer advances alone
+        use_packed = not (any(tracer_bnds.values())
+                          or o.temperature_source_3d is not None
+                          or o.salinity_source_3d is not None)
+
         def ale_combine(eq, key, u0, u_eval, fields, geom0, geom_eval,
-                        geom_new, a, b):
+                        geom_new, a, b, consistency_fix=False, bnd=None):
             """Generalized ALE stage (SSPRK22 ALE):
 
                 M_new u_new = a * M(geom0) u0
                             + b * (M(geom_eval) u_eval + dt R(u_eval))
 
             a=0, b=1 is the forward predictor stage; a=b=1/2 the SSPRK22
-            averaging corrector."""
-            r = eq.residual("all", {key: u_eval}, {key: u_eval}, fields,
-                            fields, {}, geom=geom_eval)
-            acc = b * (eq.mass_term({key: u_eval}, geom_eval)[key]
-                       + dt * r[key])
-            if a != 0.0:
-                acc = acc + a * eq.mass_term({key: u0}, geom0)[key]
-            return eq.mass_inverse({key: acc}, geom_new)[key]
+            averaging corrector.  With ``consistency_fix`` the drift of a
+            uniform field is computed and subtracted, with no boundary
+            value (a prescribed 'value' would leak into the drift)."""
+            def raw(u0v, uev, label="all", bnd_r=bnd):
+                r = eq.residual(label, {key: uev}, {key: uev}, fields,
+                                fields, bnd_r, geom=geom_eval)
+                acc = b * (eq.mass_term({key: uev}, geom_eval)[key]
+                           + dt * r[key])
+                if a != 0.0:
+                    acc = acc + a * eq.mass_term({key: u0v}, geom0)[key]
+                return eq.mass_inverse({key: acc}, geom_new)[key]
+
+            out = raw(u0, u_eval)
+            if consistency_fix:
+                ones = torch.ones_like(u0)
+                out = out - u0 * (raw(ones, ones, adv_terms, {}) - 1.0)
+            return out
+
+        # LeapFrogAM3 (ROMS' kernel): the predictor's weights
+        lf_gamma = 1.0 / 12.0
+        lf_a, lf_b = 0.5 - 2 * lf_gamma, 0.5 + 2 * lf_gamma
+        lf_c = 1.0 - 2 * lf_gamma
+
+        def lf_advance(eq, key, u0, u_prev, fields, geom_old, geom_new,
+                       consistency_fix=False, bnd=None):
+            """LeapFrogAM3 ALE step:
+
+              predict (fixed mesh):
+                u_half = (1/2 - 2g) u_{n-1} + (1/2 + 2g) u_n
+                       + dt (1 - 2g) M0^-1 R(u_n)
+              correct (Euler ALE):
+                M_new u_{n+1} = M0 u_n + dt R(u_half)
+            """
+            def predict(u0v, upv, label="all", bnd_r=bnd):
+                r = eq.residual(label, {key: u0v}, {key: u0v}, fields,
+                                fields, bnd_r, geom=geom_old)
+                k = eq.mass_inverse({key: r[key]}, geom_old)[key]
+                return lf_a * upv + lf_b * u0v + dt * lf_c * k
+
+            def correct(u0v, uhv, label="all", bnd_r=bnd):
+                r = eq.residual(label, {key: uhv}, {key: uhv}, fields,
+                                fields, bnd_r, geom=geom_old)
+                m0 = eq.mass_term({key: u0v}, geom_old)[key]
+                return eq.mass_inverse({key: m0 + dt * r[key]},
+                                       geom_new)[key]
+
+            u_half = predict(u0, u_prev)
+            if consistency_fix:
+                ones = torch.ones_like(u0)
+                u_half = u_half - u0 * (predict(ones, ones, adv_terms, {})
+                                        - 1.0)
+            u1 = correct(u0, u_half)
+            if consistency_fix:
+                ones = torch.ones_like(u0)
+                u1 = u1 - u0 * (correct(ones, ones, adv_terms, {}) - 1.0)
+            return u1
 
         def ale_advance(eq, key, u0, fields, geom_old, geom_new,
-                        limit=False):
-            """One forward ALE stage, or the two SSPRK22 ALE stages; with
-            ``limit`` the vertex limiter after every stage."""
+                        consistency_fix=False, u_prev=None, limit=False,
+                        bnd=None):
+            """Advance one 3D field over the step: one forward ALE stage,
+            the two SSPRK22 ALE stages, or LeapFrogAM3 from ``u_prev``;
+            with ``limit`` the vertex limiter after every stage."""
             def lim(x):
                 return limiter.apply(x) if limit else x
 
+            if leapfrog:
+                return lim(lf_advance(eq, key, u0, u_prev, fields, geom_old,
+                                      geom_new, consistency_fix, bnd))
             u1 = lim(ale_combine(eq, key, u0, u0, fields, geom_old, geom_old,
-                                 geom_new, 0.0, 1.0))
+                                 geom_new, 0.0, 1.0, consistency_fix, bnd))
             if not two_stage:
                 return u1
             return lim(ale_combine(eq, key, u0, u1, fields, geom_old,
-                                   geom_new, geom_new, 0.5, 0.5))
+                                   geom_new, geom_new, 0.5, 0.5,
+                                   consistency_fix, bnd))
 
         def pack_fix(cp_out, cp0, limit):
             """Post-stage packed consistency fix: subtract the uniform-field
@@ -579,10 +668,21 @@ class FlowSolver:
                 tr = limiter.apply(tr)
             return torch.cat([tr, torch.ones_like(cp_out[..., -1:])], dim=-1)
 
-        def pack_advance(cp0, fields3, geom_old, geom_new, limit=False):
+        def pack_advance(cp0, fields3, geom_old, geom_new, u_prev=None,
+                         limit=False):
             """Packed-tracer ALE advance: the stages of ``ale_advance``,
             with the drift from the ones component of the same residual
             pass."""
+            if leapfrog:
+                k = asm3d.mass_inverse(pack_residual(cp0, fields3, geom_old),
+                                       geom_old)
+                ch = pack_fix(lf_a * u_prev + lf_b * cp0 + dt * lf_c * k, cp0,
+                              limit=False)
+                m0 = asm3d.mass_apply(cp0, geom_old)
+                c1 = asm3d.mass_inverse(
+                    m0 + dt * pack_residual(ch, fields3, geom_old), geom_new)
+                return pack_fix(c1, cp0, limit)
+
             def stage(cpa, cpe, ga, ge, gn, a, b):
                 r = pack_residual(cpe, fields3, ge)
                 acc = b * (asm3d.mass_apply(cpe, ge) + dt * r)
@@ -599,19 +699,28 @@ class FlowSolver:
 
         def mesh_velocity(elev_old, elev_new):
             """w_mesh at layer dof points: dz/dt at fixed sigma =
-            sigma * d(eta)/dt."""
+            sigma * d(eta)/dt; zero on a fixed mesh."""
             deta_dt = (elev_new - elev_old) / dt          # (nc, 3)
+            if not use_ale:
+                deta_dt = torch.zeros_like(deta_dt)
             wm_if = sigma * deta_dt[..., None]            # (nc, 3, nz+1)
             return torch.stack([wm_if[..., :-1], wm_if[..., 1:]], dim=-1)
 
         def pre(state):
             """Baroclinicity diagnostics feeding the 2D solve: returns
-            ``(geom0, int_pg, src_2d)`` with the lagged split residual as
-            the 2D momentum source."""
+            ``(geom0, int_pg, src_2d)``, the 2D momentum source being the
+            lagged split residual, or without mode splitting the
+            depth-averaged internal pressure gradient (None without
+            baroclinicity)."""
             geom0 = geometry(state["elev"])
-            int_pg = (baroclinicity(state, geom0)[1]
+            int_pg = (baroclinicity(state, geom0)
                       if o.use_baroclinic_formulation else None)
-            return geom0, int_pg, state["split_residual"]
+            if modesplit:
+                return geom0, int_pg, state["split_residual"]
+            if int_pg is None:
+                return geom0, None, None
+            return geom0, int_pg, asm3d.vertical_integral(int_pg, geom0,
+                                                          average=True)
 
         def post(state, sw, geom0, int_pg, swe_fields):
             """Everything after the barotropic solve: ALE, 3D advection,
@@ -628,6 +737,16 @@ class FlowSolver:
                      if o.use_flux_consistent_w
                      else w_solver.solve(uv_adv, geom0))
             uv_total = state["uv_3d"] + expand_function_to_3d(sw["uv"], nz)
+            # a 2D viscosity field enters the 3D momentum at its cell nodes
+            visc_h = swe_fields.get("viscosity_h")
+            vh_cells = swe_fields.get("viscosity_h_cells")
+            if vh_cells is not None:
+                visc_h = vh_cells[:, :, None, None].expand(
+                    tuple(vh_cells.shape[:2]) + (nz, 2))
+            if smag is not None:
+                # the Smagorinsky closure adds to the background viscosity
+                nu_smag = smag.solve(uv_total, geom0)
+                visc_h = nu_smag if visc_h is None else nu_smag + visc_h
             fields3 = {
                 "w_3d": w_adv,
                 "w_mesh_3d": w_mesh,
@@ -635,29 +754,56 @@ class FlowSolver:
                 "coriolis": swe_fields.get("coriolis"),
                 # Coriolis acts on the deviation in the 3D mode
                 "coriolis_bg_uv_2d": sw["uv"],
-                "viscosity_h": swe_fields.get("viscosity_h"),
+                "viscosity_h": visc_h,
                 "momentum_source_3d": swe_fields.get("momentum_source_3d"),
             }
             fields3 = {k: v for k, v in fields3.items() if v is not None}
             uv_new = ale_advance(eq_mom, "uv_3d", uv_total, fields3, geom0,
-                                 geom, limit=o.use_limiter_for_velocity)
+                                 geom, u_prev=state.get("uv_lf_old"),
+                                 limit=o.use_limiter_for_velocity,
+                                 bnd=bnd_mom)
 
             # tracers, advected by the continuity-consistent velocity
             tr_fields = {"uv_3d": uv_adv, "w_3d": w_adv, "w_mesh_3d": w_mesh,
                          "diffusivity_h": swe_fields.get("diffusivity_h"),
-                         "diffusivity_v": mu_v0}
+                         "diffusivity_v": mu_v0,
+                         "source-temp_3d": swe_fields.get("source-temp_3d"),
+                         "source-salt_3d": swe_fields.get("source-salt_3d")}
             tr_fields = {k: v for k, v in tr_fields.items() if v is not None}
             new_state = dict(state)
+            if leapfrog:
+                # the history is the total velocity
+                new_state["uv_lf_old"] = uv_total
             tracer_keys = [k for k, on in (("salt_3d", solve_salt),
                                            ("temp_3d", solve_temp)) if on]
-            if tracer_keys:
+            if tracer_keys and use_packed:
                 ones = torch.ones_like(state[tracer_keys[0]])
                 cp0 = torch.stack([state[k] for k in tracer_keys] + [ones],
                                   dim=-1)
+                prev = None
+                if leapfrog:
+                    prev = torch.stack([state[_lf_key(k)]
+                                        for k in tracer_keys] + [ones],
+                                       dim=-1)
                 cp_new = pack_advance(cp0, tr_fields, geom0, geom,
+                                      u_prev=prev,
                                       limit=o.use_limiter_for_tracers)
                 for i, k in enumerate(tracer_keys):
                     new_state[k] = cp_new[..., i]
+            else:
+                # boundary values or sources differ between the tracers:
+                # each advances alone
+                eqs = {"salt_3d": eq_salt, "temp_3d": self.eq_temp}
+                for k in tracer_keys:
+                    new_state[k] = ale_advance(
+                        eqs[k], k, state[k], tr_fields, geom0, geom,
+                        consistency_fix=True,
+                        u_prev=state.get(_lf_key(k)),
+                        limit=o.use_limiter_for_tracers,
+                        bnd=tracer_bnds[k])
+            if leapfrog:
+                for k in tracer_keys:
+                    new_state[_lf_key(k)] = state[k]
 
             # implicit vertical mixing with the eddy coefficients of the
             # previous turbulence update plus the background, wind surface
@@ -704,9 +850,14 @@ class FlowSolver:
                     turb_fields = {"uv_3d": uv_adv, "w_3d": w_adv,
                                    "w_mesh_3d": w_mesh}
                     tke_in = ale_advance(eq_tke, "tke_3d", tke_in,
-                                         turb_fields, geom0, geom)
+                                         turb_fields, geom0, geom,
+                                         u_prev=state.get("tke_lf_old"))
                     psi_in = ale_advance(eq_psi, "psi_3d", psi_in,
-                                         turb_fields, geom0, geom)
+                                         turb_fields, geom0, geom,
+                                         u_prev=state.get("psi_lf_old"))
+                    if leapfrog:
+                        new_state["tke_lf_old"] = state["tke_3d"]
+                        new_state["psi_lf_old"] = state["psi_3d"]
                 rho_new = density_solver.solve(new_state["salt_3d"],
                                                new_state["temp_3d"])
                 m2, n2 = gls.compute_shear_buoy_freq(uv_new, rho_new, geom,
@@ -722,11 +873,12 @@ class FlowSolver:
                 new_state["mu_v_3d"] = mu_v
 
             # 2D<->3D coupling: remove the depth average (the 2D solution
-            # carries it); the removed average relative to the 2D flow,
-            # over dt, is the next step's 2D momentum source
+            # carries it); with mode splitting the removed average relative
+            # to the 2D flow, over dt, is the next step's 2D momentum source
             uv_dav = asm3d.vertical_integral(uv_new, geom, average=True)
             new_state["uv_3d"] = uv_new - expand_function_to_3d(uv_dav, nz)
-            new_state["split_residual"] = (uv_dav - sw["uv"]) / dt
+            if modesplit:
+                new_state["split_residual"] = (uv_dav - sw["uv"]) / dt
             new_state["uv"] = sw["uv"]
             new_state["elev"] = sw["elev"]
             return new_state
@@ -735,9 +887,10 @@ class FlowSolver:
             geom0, int_pg, src_2d = pre(state)
             user_src = swe_fields.get("momentum_source_user")
             if user_src is not None:
-                src_2d = src_2d + user_src
-            swe_fields = dict(swe_fields)
-            swe_fields["momentum_source"] = src_2d
+                src_2d = user_src if src_2d is None else src_2d + user_src
+            if src_2d is not None:
+                swe_fields = dict(swe_fields)
+                swe_fields["momentum_source"] = src_2d
             sw = {"uv": state["uv"], "elev": state["elev"]}
             # dt_mode='split': M explicit barotropic substeps at dt_2d
             for _ in range(M_split):
@@ -757,17 +910,32 @@ class FlowSolver:
 
     # ------------------------------------------------------------------
     def _get_state(self):
+        """The step's state from the fields; under LeapFrogAM3 its
+        history keys are seeded with the current state (the total
+        velocity for ``uv_lf_old``), so the first step reduces to a
+        forward stage."""
+        o = self.options
         f = self.fields
         s = {
             "uv": f.uv_2d.data, "elev": f.elev_2d.data,
             "uv_3d": f.uv_3d.data,
             "salt_3d": f.salt_3d.data, "temp_3d": f.temp_3d.data,
             "tke_3d": f.tke_3d.data, "psi_3d": f.psi_3d.data,
-            "split_residual": f.split_residual_2d.data,
         }
-        if self.options.use_turbulence:
+        if o.use_modesplit_2d:
+            s["split_residual"] = f.split_residual_2d.data
+        leapfrog = str(o.timestepper_type) == "LeapFrogAM3"
+        if o.use_turbulence:
             s["nu_v_3d"] = f.nu_v_3d.data
             s["mu_v_3d"] = f.mu_v_3d.data
+            if o.use_turbulence_advection and leapfrog:
+                s["tke_lf_old"] = f.tke_3d.data
+                s["psi_lf_old"] = f.psi_3d.data
+        if leapfrog:
+            s["uv_lf_old"] = f.uv_3d.data + expand_function_to_3d(
+                f.uv_2d.data, self.extruded.nz)
+            s["salt_lf_old"] = f.salt_3d.data
+            s["temp_lf_old"] = f.temp_3d.data
         return s
 
     def _set_state(self, s):
@@ -777,8 +945,10 @@ class FlowSolver:
         f.uv_3d.data = s["uv_3d"]
         # diagnostic vertical velocity from the total transport (export
         # quality; a function of the prognostic state alone)
+        elev_mesh = (s["elev"] if self.options.use_ale_moving_mesh
+                     else torch.zeros_like(s["elev"]))
         geom = self.asm3d.layer_geometry(
-            self.extruded.z_interfaces(self.bathy_cell, s["elev"]))
+            self.extruded.z_interfaces(self.bathy_cell, elev_mesh))
         wsolve = (self.w_solver.solve_weak
                   if self.options.use_flux_consistent_w
                   else self.w_solver.solve)
@@ -789,7 +959,8 @@ class FlowSolver:
         f.temp_3d.data = s["temp_3d"]
         f.tke_3d.data = s["tke_3d"]
         f.psi_3d.data = s["psi_3d"]
-        f.split_residual_2d.data = s["split_residual"]
+        if "split_residual" in s:
+            f.split_residual_2d.data = s["split_residual"]
         if "nu_v_3d" in s:
             f.nu_v_3d.data = s["nu_v_3d"]
             f.mu_v_3d.data = s["mu_v_3d"]
@@ -812,9 +983,16 @@ class FlowSolver:
             if v.dim() and v.shape[0] == mesh.nv:
                 v = v[mesh.cells]       # CG1 -> P1DG cell nodes
             out["wind_stress"] = v
-        if o.horizontal_viscosity is not None:
-            # a constant (``_check_options`` refuses a field, ROADMAP A7c)
-            out["viscosity_h"] = t(float(o.horizontal_viscosity))
+        v = o.horizontal_viscosity
+        if isinstance(v, Function):
+            out["viscosity_h"] = v.data
+            # (nc, 3) cell nodes for the 3D momentum; CG1 is told from DG
+            # by the space's family (their shapes agree where nc == nv)
+            out["viscosity_h_cells"] = (
+                v.data[mesh.cells] if v.function_space.family == "CG"
+                else v.data)
+        elif v is not None:
+            out["viscosity_h"] = t(float(v))
         if o.horizontal_diffusivity is not None:
             out["diffusivity_h"] = t(float(o.horizontal_diffusivity))
         if o.volume_source_2d is not None:
@@ -822,8 +1000,12 @@ class FlowSolver:
             if v.dim() and v.shape[0] == mesh.nv:
                 v = v[mesh.cells]
             out["volume_source"] = v
-        if o.momentum_source_3d is not None:
-            out["momentum_source_3d"] = t(o.momentum_source_3d)
+        # interior 3D sources, on the (nc, 3, nz, 2) dof layout
+        for opt, key in (("momentum_source_3d", "momentum_source_3d"),
+                         ("temperature_source_3d", "source-temp_3d"),
+                         ("salinity_source_3d", "source-salt_3d")):
+            if getattr(o, opt) is not None:
+                out[key] = t(getattr(o, opt))
         if o.quadratic_drag_coefficient is not None and \
                 not o.use_bottom_friction:
             # with 3D bottom friction the drag acts on the 3D momentum;
@@ -834,9 +1016,7 @@ class FlowSolver:
 
     def _gather_bnd_sw(self):
         """The 2D mode's boundary data as tensors on the mesh's device."""
-        return {int(m): {k: self._tensor(v) for k, v in spec.items()}
-                for m, spec in self.bnd_functions.get(
-                    "shallow_water", {}).items()}
+        return self._bnd3("shallow_water")
 
     # -- monitors and the time loop --------------------------------------
     def _register_monitor_callbacks(self):
