@@ -35,7 +35,14 @@ PyTorch version:
   same 320x160 workloads: SSPRK33 (no kernel on its path), the
   semi-implicit CN, the CN under each preconditioner of the CFL policy
   (coarse correction, Schur fieldsplit) and the Newton CN with the
-  assembled wave preconditioner (ring matvec and block-Jacobi inside it).
+  assembled wave preconditioner (ring matvec and block-Jacobi inside it);
+* the 2D slice of tracers, wetting-and-drying and the other steppers:
+  DIRK22 semi-implicit SWE (each stage an assembled FGMRES on the ring
+  matvec and block-Jacobi kernels) with two P1DG tracers (CN, limiter,
+  a source, the monitors) at 320x160 (1,536,000 DOF); the Thacker bowl
+  at the same width and the reference test's own case; DIRK33 and
+  PressureProjectionPicard at 320x160, PPP on the standing wave,
+  SteadyState and SSPIMEX at the CPU tests' sizes.
 
 Phases, each printing its lines:
 
@@ -67,8 +74,8 @@ Phases, each printing its lines:
    process (``python3 chip_smoke.py profile3d``), the profiler's device
    kernels of one step and of the velocity column solve alone (one
    tridiagonal kernel, no copy of a coefficient);
-7. 3D parity, f64, GPU against the CPU plain path: one step of the plain
-   workload, three of the GLS workload with and without advection of tke
+7. 3D parity, f64, GPU against the CPU plain path (run in phase 21's
+   block, after every timed phase): one step of the plain workload, three of the GLS workload with and without advection of tke
    and psi, three of the estuary at 8x8x4, of ROFI at coarse 16 with 2
    layers (from a stratified start) and of each coupling at 16x16x12;
 12. 3D model with GLS, f32, full size: 1 warm-up + 20 steps through
@@ -104,7 +111,29 @@ Phases, each printing its lines:
     warm-up + 3 timed steps each; setup seconds, Newton iterations,
     FGMRES cycles, launches, ms/step, peak memory, final residuals;
 11. 2D model parity, f64, 80x40: one step of each configuration of
-    phases 8-10 on the GPU against the CPU plain path.
+    phases 8-10 and 18-20 on the GPU against the CPU plain path (run in
+    phase 21's block);
+18. the 2D slice, f32, 320x160, through ``iterate()``: DIRK22
+    semi-implicit SWE with two P1DG tracers (CN tracer stepper, limiter,
+    a source on one, the volume, tracer-mass and overshoot monitors), 1
+    warm-up + 10 steps: ms/step, DOF*steps/s of 1,536,000 DOF, ring_mv /
+    block_diag_mv launches a step (> 0), FGMRES cycles a stage, the
+    tracer mass change; from a fresh process (``python3 chip_smoke.py
+    profile2d_tracers``) the device kernels and device ms of one step;
+19. wetting-and-drying: the Thacker bowl on SquareMesh(226, 226)
+    (102,152 cells), f32, CN, 1 + 5 steps: ms/step, Newton iterations,
+    FGMRES cycles, the volume change (and f64's over the same steps);
+20. DIRK33 and PressureProjectionPicard at 320x160, f32, 1 + 3 steps
+    each;
+21. the f64 checks that time nothing, after every timed phase: the
+    Thacker case of ``tests/test_thacker.py`` (n = 10, dt 600 s, 72
+    steps) under CN, DIRK22 and BackwardEuler against its bounds and PPP
+    on the standing wave (100x1, 20 steps, relative error <= 5e-3), each
+    in a process of its own (``python3 chip_smoke.py thacker <stepper>``,
+    ``python3 chip_smoke.py standing_wave``), all four at once; meanwhile
+    phases 7 and 11 (one 80x40 step of the slice, DIRK33, PPP and the
+    bowl under CN among them) and SteadyState (8x4) and SSPIMEX (5x4),
+    each GPU against CPU.
 
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
@@ -137,7 +166,7 @@ from thetis_tpu_torch.equations.momentum_3d import vertical_viscosity_implicit
 from thetis_tpu_torch.kernels.cases import (RAGGED_NC, RAGGED_TRIDIAG,
                                             ragged_case, ragged_tridiag_case)
 from thetis_tpu_torch.mesh.generation import (PeriodicRectangleMesh,
-                                              RectangleMesh)
+                                              RectangleMesh, SquareMesh)
 from thetis_tpu_torch.mesh.mesh2d import Mesh2d
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 from thetis_tpu_torch.model.flowsolver3d import FlowSolver
@@ -1608,8 +1637,13 @@ def check_finite(tag, state):
 
 
 def monitor_text(s):
+    return callbacks_text(s.callbacks["export"])
+
+
+def callbacks_text(cbs):
+    """The monitors' readings now against their first value."""
     out = []
-    for name, cb in s.callbacks["export"].items():
+    for name, cb in cbs.items():
         v = cb()
         out.append(f"{name} rel. error {v[1]:.3e}" if len(v) == 2 else
                    f"{name} {v[0]:.4f}..{v[1]:.4f} (under/overshoot "
@@ -1984,6 +2018,530 @@ def phase_model_parity():
             f"{secs['cpu'][1]:.2f} s: max|diff|/max {errs} <= "
             f"{PARITY_RTOL:g}: ok")
 
+# -- the 2D slice: tracers, wetting-and-drying, the other steppers --------
+#: phase 18, the slice at full width: the DIRK22 semi-implicit SWE with the
+#: CN workload's Krylov settings (f32 floors near ksp_rtol 1e-5), two P1DG
+#: tracers on the default CN tracer stepper (the reference's default
+#: NewtonParameters), the limiter, a source on the first
+SLICE2D_PARAMS = dict(ksp_rtol=1e-5, ksp_max_it=32, gmres_restart=RESTART)
+TRACER_LABELS = ("tracer_2d", "salt_2d")
+TRACER_SOURCE = 1e-6                    # 1/s, on tracer_2d
+STEPS_SLICE2D = 10
+#: the Thacker bowl (tests/test_thacker.py)
+THACKER_L, THACKER_D0, THACKER_R, THACKER_ETA0 = 951646.46, 50.0, 430620.0, 2.0
+THACKER_N = 226                         # 102,152 cells, the bench's width
+THACKER_BOUNDS = {"CrankNicolson": 0.26, "DIRK22": 0.26,
+                  "BackwardEuler": 0.33}
+#: the f64 parity of a wetting-and-drying step: a Krylov budget that
+#: solves the step to roundoff (with the default 48 iterations the mass
+#: preconditioner leaves the DIRK22 stages near 8e-5, where two summation
+#: orders part at ~6e-6 of the state)
+WD_PARITY_PARAMS = dict(ksp_rtol=1e-12, ksp_max_it=400, gmres_restart=50)
+PPP_SW_BOUND = 5e-3                     # tests/test_standing_wave.py, n = 20
+
+
+def slice2d_solver(device, dtype, nx=NX, ny=NY, stepper="DIRK22",
+                   tracers=True, params=SLICE2D_PARAMS):
+    """The bench's 2D case (the Gaussian of bench.py:67-70, depth 50 m, dt
+    2 hmin/c) under ``stepper`` entered through the model API, with two
+    tracers (a blob with a source, a salinity ramp) and the three
+    monitors when ``tracers``.  Returns ``(solver, setup seconds)``."""
+    mesh = RectangleMesh(nx, ny, LX, LY, device=device, dtype=dtype)
+    s = FlowSolver2d(mesh, 50.0)
+    o = s.options
+    o.swe_timestepper_type = stepper
+    if params is not None:
+        o.swe_timestepper_options.solver_parameters = NewtonParameters(
+            **params)
+    o.timestep = 2.0 * float(mesh.cell_hmin_np.min()) / math.sqrt(9.81 * 51.0)
+    o.quadratic_drag_coefficient = 2.5e-3
+    o.no_exports = True
+    if tracers:
+        o.add_tracer_2d("tracer_2d", source=TRACER_SOURCE, diffusivity=1.0)
+        o.add_tracer_2d("salt_2d", diffusivity=1.0)
+        o.check_volume_conservation_2d = True
+        o.check_tracer_conservation = True
+        o.check_tracer_overshoot = True
+    _, t_setup = sync_time(s.initialize)
+    x = s.function_spaces.H_2d.dof_coords()
+    xx, yy = x[..., 0], x[..., 1]
+    kw = {}
+    if tracers:
+        kw = dict(tracer_2d=1.0 + 0.5 * torch.exp(
+            -(((xx - LX / 4) / 10e3) ** 2) - ((yy - LY / 2) / 10e3) ** 2),
+            salt_2d=30.0 + 2.0 * xx / LX)
+    s.assign_initial_conditions(elev=torch.exp(
+        -(((xx - LX / 2) / 15e3) ** 2) - ((yy - LY / 2) / 15e3) ** 2), **kw)
+    return s, t_setup
+
+
+def phase_slice2d_tracers(smi):
+    """Phase 18, the 2D slice at full width through ``iterate()``:
+    DIRK22 semi-implicit SWE (each stage an assembled FGMRES on ring_mv +
+    block_diag_mv) with two P1DG tracers, the limiter, a source and the
+    monitors; 1 warm-up + 10 steps, then the device kernels of one step
+    from a fresh process (``python3 chip_smoke.py profile2d_tracers``)."""
+    dev = torch.device("cuda")
+    s, t_setup = slice2d_solver(dev, torch.float32)
+    nc = s.mesh2d.nc
+    n_dofs = 9 * nc + len(TRACER_LABELS) * 3 * nc
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    mass0 = {l: s.compute_tracer_mass(l) for l in TRACER_LABELS}
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    # the monitors iterate() attached, read now and after the timed steps
+    # (with no_exports they are not evaluated inside iterate())
+    monitors = dict(s.callbacks["export"])
+    for cb in monitors.values():
+        cb()
+    if sorted(monitors) != sorted(
+            ["volume2d"] + [f"{l} mass" for l in TRACER_LABELS]
+            + [f"{l} overshoot" for l in TRACER_LABELS]):
+        raise AssertionError(f"monitors {sorted(monitors)}")
+    ts = s.timestepper
+    log(f"[slice2d tracers] f32 {NX}x{NY}: nc={nc}, {n_dofs} DOF (SWE "
+        f"{9 * nc} + 2 P1DG tracers), dt={s.dt:.3f} s (2 hmin/c), SWE "
+        f"{type(ts).__name__} DIRK22 semi-implicit assembled (coarse PC "
+        f"{type(ts.coarse).__name__}, wave CFL "
+        f"{s._wave_cfl(float(ts.a[-1][-1]) * s.dt):.2f}), tracers "
+        f"{type(s.tracer_stepper).__name__} + "
+        f"{type(s.tracer_limiter).__name__}; setup {t_setup:.2f} s, warm-up "
+        f"step {t_warm * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, t = sync_time(lambda: iterate_steps(s, STEPS_SLICE2D))
+    n = counts()
+    check_state("slice2d tracers", s, shapes)
+    if s.iteration != STEPS_SLICE2D + 1:
+        raise AssertionError(f"iterate ran {s.iteration} steps")
+    if n["ring_mv"] == 0 or n["block_diag_mv"] == 0:
+        raise AssertionError(f"the DIRK22 stages missed a kernel: {n}")
+    st = ts.stats
+    if st["stages"] != 2 or not st["ksp_rel_residual"] <= 1e-5:
+        raise AssertionError(f"DIRK22 stage solves: {st}")
+    tst = s.tracer_stepper.stats
+    per = {k: v / STEPS_SLICE2D for k, v in n.items()}
+    ms = t / STEPS_SLICE2D * 1e3
+    mass = {l: (s.compute_tracer_mass(l) - mass0[l]) / abs(mass0[l])
+            for l in TRACER_LABELS}
+    if not abs(mass["salt_2d"]) < 1e-3:
+        raise AssertionError(f"salt_2d mass changed by {mass['salt_2d']}")
+    log(f"[slice2d tracers] {STEPS_SLICE2D} steps through iterate(): "
+        f"{ms:.2f} ms/step, {n_dofs * STEPS_SLICE2D / t:.4e} DOF*steps/s; "
+        f"launches {n} = per step {per} (both DIRK22 stages); last step's "
+        f"SWE FGMRES cycles {st['ksp_cycles']} over {st['stages']} stages "
+        f"({st['ksp_cycles'] / st['stages']:.2f} a stage, final relative "
+        f"residual {st['ksp_rel_residual']:.2e}); tracer CN: "
+        f"{tst.get('newton_iterations')} Newton iteration, "
+        f"{tst.get('ksp_cycles')} FGMRES cycles of 16; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[slice2d tracers] tracer mass change since the start (11 steps): "
+        f"tracer_2d {mass['tracer_2d']:.3e} (source {TRACER_SOURCE:g}/s), "
+        f"salt_2d {mass['salt_2d']:.3e}; monitors over the 10 timed steps: "
+        f"{callbacks_text(monitors)}; card: {smi}")
+    run_profile("profile2d_tracers", "[slice2d tracers profile]")
+    return n
+
+
+def profile2d_tracers():
+    """The profiler's view of one step of phase 18's slice after 2 steps,
+    from a fresh process (kernels built already)."""
+    phase_device()
+    dev = torch.device("cuda")
+    s, _ = slice2d_solver(dev, torch.float32)
+    iterate_steps(s, 2)
+    st = s._get_state()
+    args = (0.0, st, s._gather_swe_fields(), s._gather_tracer_extra(st),
+            s._gather_bnd("shallow_water"), s._gather_bnd("tracer"))
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    rows = device_rows(lambda: s._advance(*args))
+    if not rows:
+        raise RuntimeError("the profiler saw no device kernel in a step")
+    hand = {k: sum(c for _, c, key in rows if f"{k}_kernel" in key)
+            for k in ("ring_mv", "block_diag_mv")}
+    if not all(hand.values()):
+        raise AssertionError(f"one step's hand kernels: {hand}")
+    tag = "[slice2d tracers profile]"
+    log(f"{tag} one step (DIRK22 SWE, two CN tracers, limiter): "
+        f"{sum(r[1] for r in rows)} device kernels, device busy "
+        f"{sum(r[0] for r in rows) / 1e3:.3f} ms; hand kernels {hand}; top "
+        "by device time:")
+    for us, cnt, key in rows[:8]:
+        log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
+
+
+def thacker_bowl(x, y):
+    """The bowl's bathymetry and its elevation at t = 0 (= after one
+    period)."""
+    a = (((THACKER_D0 + THACKER_ETA0) ** 2 - THACKER_D0 ** 2)
+         / ((THACKER_D0 + THACKER_ETA0) ** 2 + THACKER_D0 ** 2))
+    r2 = (x - THACKER_L / 2) ** 2 + (y - THACKER_L / 2) ** 2
+    b = THACKER_D0 * (1 - r2 / THACKER_R ** 2)
+    eta = THACKER_D0 * (np.sqrt(1 - a * a) / (1 - a) - 1
+                        - r2 * ((1 + a) / (1 - a) - 1) / THACKER_R ** 2)
+    return b, eta
+
+
+def thacker_solver(device, dtype, stepper, nx, dt, ny=None, params=None):
+    """``tests/test_thacker.py``'s case: the bowl, wetting-and-drying with
+    the automatic alpha, on an ``nx`` x ``ny`` mesh of the square."""
+    if ny is None:
+        mesh = SquareMesh(nx, nx, THACKER_L, device=device, dtype=dtype)
+    else:
+        mesh = RectangleMesh(nx, ny, THACKER_L, THACKER_L, device=device,
+                             dtype=dtype)
+    b, eta = thacker_bowl(mesh.coords_np[:, 0], mesh.coords_np[:, 1])
+    s = FlowSolver2d(mesh, torch.as_tensor(b, dtype=dtype, device=device))
+    o = s.options
+    o.timestep = dt
+    o.simulation_export_time = 3600.0
+    o.simulation_end_time = 43200.0
+    o.no_exports = True
+    o.swe_timestepper_type = stepper
+    o.use_wetting_and_drying = True
+    o.use_automatic_wetting_and_drying_alpha = True
+    if params is not None:
+        o.swe_timestepper_options.solver_parameters = NewtonParameters(
+            **params)
+    _, t_setup = sync_time(s.initialize)
+    s.assign_initial_conditions(
+        elev=torch.as_tensor(eta, dtype=dtype, device=device))
+    return s, t_setup
+
+
+def thacker_error(s):
+    """The reference test's masked L2 elevation error over the mesh
+    length."""
+    xy = s.function_spaces.H_2d.dof_coords().cpu().numpy()
+    _, correct = thacker_bowl(xy[..., 0], xy[..., 1])
+    r = np.hypot(xy[..., 0] - THACKER_L / 2, xy[..., 1] - THACKER_L / 2)
+    mask = 0.5 * (1 - np.tanh((r - 420000.0) / 1000.0))
+    eta = s.fields.elev_2d.data.cpu().numpy()
+    diff = torch.as_tensor(mask * (eta - correct), dtype=torch.float64,
+                           device=s.mesh2d.device).to(s.mesh2d.dtype)
+    return float(s.asm.norm_l2(diff)) / THACKER_L
+
+
+def phase_wetting_drying(smi):
+    """Phase 19, wetting-and-drying: the Thacker bowl on SquareMesh(226,
+    226) (102,152 cells; dt scaled from the test's 600 s at n = 10 to the
+    same wave CFL), f32, CN (the matrix-free Newton: the displaced mass
+    keeps it off the assembled path), 1 + 5 steps, and the volume change
+    of the same steps in f64 beside it.  (The reference test's own case
+    runs in :func:`phase_cases`.)"""
+    dev = torch.device("cuda")
+    dt = 600.0 * 10 / THACKER_N
+    s, t_setup = thacker_solver(dev, torch.float32, "CrankNicolson",
+                                THACKER_N, dt)
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    alpha = s.options.wetting_and_drying_alpha.data
+    vol0 = s.compute_volume_2d()
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    reset_counts()
+    stats = []
+
+    def run():
+        for _ in range(5):
+            iterate_steps(s, 1)
+            stats.append(dict(s.timestepper.stats))
+
+    _, t = sync_time(run)
+    n = counts()
+    check_state("wetting-drying", s, shapes)
+    vol = (s.compute_volume_2d() - vol0) / vol0
+    newton = sum(x["newton_iterations"] for x in stats) / 5
+    cycles = sum(x["ksp_cycles"] for x in stats) / 5
+    worst = max(x["ksp_rel_residual"] for x in stats)
+    pc = s.timestepper.preconditioner
+    pc = pc if isinstance(pc, str) else type(pc).__name__
+    log(f"[wetting-drying] f32 Thacker bowl on SquareMesh({THACKER_N}, "
+        f"{THACKER_N}): nc={s.mesh2d.nc}, dt={dt:.3f} s, CN ({pc} "
+        f"preconditioner, assembled {s.timestepper.assembled_solve}), "
+        f"automatic alpha {float(alpha.min()):.3f}..{float(alpha.max()):.3f}"
+        f"; setup {t_setup:.2f} s, warm-up {t_warm * 1e3:.1f} ms; 5 steps "
+        f"{t / 5 * 1e3:.2f} ms/step; Newton iterations/step {newton:.2f}, "
+        f"FGMRES cycles/step {cycles:.2f} (of 16), worst final relative "
+        f"residual {worst:.2e}; launches {n}; volume (the monitor's "
+        f"integral) changed by {vol:.3e} in 6 steps; card: {smi}")
+    s64, _ = thacker_solver(dev, torch.float64, "CrankNicolson", THACKER_N,
+                            dt)
+    v0 = s64.compute_volume_2d()
+    iterate_steps(s64, 6)
+    vol64 = (s64.compute_volume_2d() - v0) / v0
+    elev_err = float((s.fields.elev_2d.data.double()
+                      - s64.fields.elev_2d.data).abs().max())
+    log(f"[wetting-drying] the same 6 steps in f64: volume changed by "
+        f"{vol64:.3e} (f32 - f64: {vol - vol64:.3e}); max|elev f32 - f64| "
+        f"{elev_err:.3e} m")
+    return n
+
+
+def thacker_case(stepper):
+    """``tests/test_thacker.py``'s own case on the card: n = 10, dt 600 s,
+    72 steps (one period), f64, against its bound for ``stepper``
+    (``python3 chip_smoke.py thacker <stepper>``)."""
+    phase_device()
+    bound = THACKER_BOUNDS[stepper]
+    s, _ = thacker_solver(torch.device("cuda"), torch.float64, stepper, 10,
+                          600.0)
+    _, t = sync_time(s.iterate)
+    err = thacker_error(s)
+    if s.iteration != 72 or not err < bound:
+        raise AssertionError(f"Thacker {stepper}: {s.iteration} steps, L2 "
+                             f"error {err} (bound {bound})")
+    log(f"[wetting-drying] tests/test_thacker.py case, f64, {stepper}: 72 "
+        f"steps of 600 s in {t:.2f} s, elevation L2 error {err:.4f} < "
+        f"{bound}; last step {s.timestepper.stats}")
+
+
+def standing_wave_case():
+    """PPP on the standing wave on the card (``python3 chip_smoke.py
+    standing_wave``)."""
+    phase_device()
+    t0 = time.perf_counter()
+    rel, s = standing_wave_ppp(torch.device("cuda"))
+    if s.iteration != 20 or not rel <= PPP_SW_BOUND:
+        raise AssertionError(f"standing wave: {s.iteration} steps, relative "
+                             f"error {rel}")
+    log(f"[model2d ppp standing wave] f64 100x1, 20 PressureProjectionPicard "
+        f"steps in {time.perf_counter() - t0:.2f} s: relative L2 error "
+        f"{rel:.4e} <= {PPP_SW_BOUND:g}; last step {s.timestepper.stats}")
+
+
+def start_cases(modes):
+    """Start each ``chip_smoke.py`` mode in a process of its own, all at
+    once (small, launch-bound f64 runs: their host time overlaps)."""
+    return [(m, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)] + m,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for m in modes]
+
+
+def finish_cases(procs, timeout=600):
+    """Wait for :func:`start_cases`' processes, pass their lines on and
+    fail if one failed; every process is ended."""
+    failed = []
+    try:
+        for mode, p in procs:
+            out, err = p.communicate(timeout=timeout)
+            for line in out.splitlines():
+                if line.startswith("["):
+                    log(line)
+            if p.returncode != 0:
+                failed.append(f"{' '.join(mode)}:\n{err[-3000:]}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError("case processes failed:\n" + "\n".join(failed))
+
+
+def standing_wave_ppp(device):
+    """tests/test_standing_wave.py's channel (100 x 1, depth 100 m): one
+    period in 20 PressureProjectionPicard steps, f64; returns the relative
+    L2 elevation error and the solver."""
+    lx, ly, nsteps, depth = 5e3, 1e3, 20, 100.0
+    mesh = RectangleMesh(100, 1, lx, ly, device=device, dtype=torch.float64)
+    period = 2 * lx / math.sqrt(float(physical_constants["g_grav"]) * depth)
+    dt = period / nsteps
+    s = FlowSolver2d(mesh, Function(FunctionSpace(mesh, "CG", 1)).assign(
+        depth))
+    o = s.options
+    o.timestep = dt
+    o.simulation_export_time = dt * nsteps
+    o.simulation_end_time = period - 0.1 * dt
+    o.no_exports = True
+    o.swe_timestepper_type = "PressureProjectionPicard"
+    s.create_function_spaces()
+    e0 = Function(s.function_spaces.H_2d).interpolate(
+        lambda x, y: torch.cos(math.pi * x / lx))
+    s.assign_initial_conditions(elev=e0)
+    s.iterate()
+    rel = float(s.asm.norm_l2(s.fields.elev_2d.data - e0.data)) / math.sqrt(
+        lx * ly)
+    return rel, s
+
+
+def steady_state_solver(device):
+    """SteadyState at 8x4, f64 (tests/test_adjoint_swe.py's set-up: a
+    viscosity, a drag bump, an inflow and an open outflow)."""
+    mesh = RectangleMesh(8, 4, 100.0, 50.0, device=device,
+                         dtype=torch.float64)
+    s = FlowSolver2d(mesh, 50.0)
+    o = s.options
+    o.swe_timestepper_type = "SteadyState"
+    o.timestep = 0.5
+    o.simulation_export_time = 0.5
+    o.simulation_end_time = 0.5
+    o.no_exports = True
+    o.horizontal_viscosity = 2.0
+    x = torch.as_tensor(mesh.coords_np, device=device)
+    o.quadratic_drag_coefficient = 12.0 * torch.exp(
+        -((x[:, 0] - 50.0) ** 2 + (x[:, 1] - 25.0) ** 2) / 20.0 ** 2) + 0.0025
+    s.bnd_functions["shallow_water"] = {1: {"un": -1.0}, 2: {"elev": 0.0}}
+    s.assign_initial_conditions(uv=torch.tensor([1.0, 0.0], device=device,
+                                                dtype=torch.float64),
+                                elev=0.0)
+    return s
+
+
+def imex_step(device):
+    """One SSPIMEX (IMEXLPUM2) step of the 5x4 SWE of the CPU tests
+    (tests/test_torch_steppers2d.py), f64."""
+    mesh = RectangleMesh(5, 4, 1e4, 8e3, device=device, dtype=torch.float64)
+    asm = DGAssembler(mesh, FunctionSpace(mesh, "DG", 1))
+    opts = SimpleNamespace(
+        use_nonlinear_equations=True, use_wetting_and_drying=False,
+        use_lax_friedrichs_velocity=True, use_grad_div_viscosity_term=False,
+        use_grad_depth_viscosity_term=True, sipg_factor=1.0,
+        norm_smoother=0.0)
+    bathy = torch.as_tensor(20.0 + 5.0 * mesh.coords_np[:, 1] / 8e3,
+                            device=device)
+    bnd = {1: {"elev": 0.05}}
+    eq = ShallowWaterEquations(mesh, asm, opts, bathymetry=bathy,
+                               bnd_conditions=bnd)
+    x = torch.as_tensor(mesh.coords_np[mesh.cells_np], device=device)
+    rng = np.random.default_rng(9)
+    sol = {"elev": 0.5 * torch.exp(-((x[..., 0] - 5e3) / 2e3) ** 2),
+           "uv": torch.as_tensor(0.05 * rng.standard_normal(
+               (mesh.nc, 3, 2)), device=device)}
+    fields = {"lax_friedrichs_velocity_scaling_factor": asm.as_tensor(1.0),
+              "quadratic_drag_coefficient": asm.as_tensor(2.5e-3)}
+    dt = 1.5 * float(mesh.cell_hmin_np.min()) / math.sqrt(9.81 * 25.0)
+    st = get_stepper("SSPIMEX", eq, dt, semi_implicit=True,
+                     solver_parameters=NewtonParameters(
+                         ksp_rtol=1e-10, ksp_max_it=60, gmres_restart=30))
+    return st.advance(0.0, sol, fields, fields, bnd), st
+
+
+def phase_other_steppers(smi):
+    """Phase 20: DIRK33 and PressureProjectionPicard at 320x160 (f32, 1 +
+    3 steps each); SteadyState (8x4) and SSPIMEX (5x4) at the CPU tests'
+    sizes, each GPU against CPU in f64.  (PPP on the standing wave runs in
+    :func:`phase_cases`.)"""
+    dev = torch.device("cuda")
+    total = {k: 0 for k in KERNELS}
+    for stepper, params in (("DIRK33", SLICE2D_PARAMS),
+                            ("PressureProjectionPicard", None)):
+        s, t_setup = slice2d_solver(dev, torch.float32, stepper=stepper,
+                                    tracers=False, params=params)
+        shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+        _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+        reset_counts()
+        stats = []
+
+        def run():
+            for _ in range(3):
+                iterate_steps(s, 1)
+                stats.append(dict(s.timestepper.stats))
+
+        _, t = sync_time(run)
+        n = counts()
+        for k in KERNELS:
+            total[k] += n[k]
+        check_state(f"model2d {stepper}", s, shapes)
+        assembled = getattr(s.timestepper, "assembled_solve", False)
+        if assembled and (n["ring_mv"] == 0 or n["block_diag_mv"] == 0):
+            raise AssertionError(f"{stepper} launches {n}")
+        cycles = sum(x["ksp_cycles"] for x in stats) / 3
+        newton = sum(x["newton_iterations"] for x in stats) / 3
+        log(f"[model2d {stepper}] f32 {NX}x{NY}, dt={s.dt:.3f} s: setup "
+            f"{t_setup:.2f} s, warm-up {t_warm * 1e3:.1f} ms; 3 steps "
+            f"{t / 3 * 1e3:.2f} ms/step; implicit solves/step "
+            f"{stats[-1]['stages']}, Newton iterations/step {newton:.2f}, "
+            f"FGMRES cycles/step {cycles:.2f}, last final relative residual "
+            f"{stats[-1]['ksp_rel_residual']:.2e}; launches {n} (assembled "
+            f"{assembled}); card: {smi}")
+    return total
+
+
+def phase_cases():
+    """The f64 checks that time nothing, after every timed phase: the
+    Thacker case (``tests/test_thacker.py``: CN, DIRK22, BackwardEuler)
+    and PPP on the standing wave (``tests/test_standing_wave.py``, 20
+    steps), each launch-bound and in a process of its own, all four at
+    once; meanwhile, in this process on 4 CPU threads, the GPU-against-CPU
+    parity of phase 7 (3D), phase 11 (2D, this slice's configurations
+    with it), SteadyState and SSPIMEX."""
+    procs = start_cases([["thacker", k] for k in THACKER_BOUNDS]
+                        + [["standing_wave"]])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    try:
+        for phase in (phase_parity3d, phase_model_parity,
+                      phase_model_parity_slice, phase_small_steppers):
+            t0 = time.perf_counter()
+            phase()
+            log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.set_num_threads(threads)
+        finish_cases(procs)
+
+
+def phase_small_steppers():
+    """SteadyState (8x4) and SSPIMEX (5x4), f64, GPU against CPU."""
+    dev = torch.device("cuda")
+    out = {}
+    for dv in ("cuda", "cpu"):
+        ss = steady_state_solver(torch.device(dv))
+        ss.iterate()
+        out[dv] = (ss._get_state(), dict(ss.timestepper.stats))
+    st = out["cuda"][1]
+    if not st["snes_rel_residual"] < 1e-8:
+        raise AssertionError(f"SteadyState Newton: {st}")
+    errs = compare("SteadyState", out["cuda"][0], out["cpu"][0], PARITY_RTOL)
+    log(f"[model2d steadystate] f64 8x4, dense-LU line-searched Newton: "
+        f"{st['newton_iterations']} iterations to {st['snes_rel_residual']:.2e}"
+        f"; GPU against CPU max|diff|/max {errs} <= {PARITY_RTOL:g}: ok")
+    a, st = imex_step(dev)
+    b, _ = imex_step(torch.device("cpu"))
+    errs = compare("SSPIMEX", a, b, PARITY_RTOL)
+    log(f"[model2d sspimex] f64 5x4, one step ({st.stats['stages']} implicit "
+        f"stages): GPU against CPU max|diff|/max {errs} <= {PARITY_RTOL:g}: "
+        "ok")
+
+
+def phase_model_parity_slice():
+    """Phase 11's f64 GPU-against-CPU parity for this slice's
+    configurations, one step each at 80x40: the slice (DIRK22 + tracers),
+    DIRK33, PressureProjectionPicard and the bowl under CN (with a Krylov
+    budget that solves the step to roundoff)."""
+    cases = {
+        "dirk22 tracers": lambda d: slice2d_solver(
+            d, torch.float64, NX_PARITY, NY_PARITY)[0],
+        "dirk33": lambda d: slice2d_solver(
+            d, torch.float64, NX_PARITY, NY_PARITY, stepper="DIRK33",
+            tracers=False)[0],
+        "ppp": lambda d: slice2d_solver(
+            d, torch.float64, NX_PARITY, NY_PARITY,
+            stepper="PressureProjectionPicard", tracers=False,
+            params=None)[0],
+        "wetting-drying cn": lambda d: thacker_solver(
+            d, torch.float64, "CrankNicolson", NX_PARITY, 600.0 * 10 / 80,
+            ny=NY_PARITY, params=WD_PARITY_PARAMS)[0],
+    }
+    for name, make in cases.items():
+        out, secs = {}, {}
+        for dv in ("cuda", "cpu"):
+            s = make(torch.device(dv))
+            reset_counts()
+            t0 = time.perf_counter()
+            iterate_steps(s, 1)
+            if dv == "cuda":
+                torch.cuda.synchronize()
+                n = counts()
+            secs[dv] = time.perf_counter() - t0
+            out[dv] = s._get_state()
+        ring = name.startswith("dirk")
+        if (n["ring_mv"] > 0) != ring:
+            raise AssertionError(f"parity {name}: GPU step launches {n}")
+        errs = compare(f"parity model2d {name}", out["cuda"], out["cpu"],
+                       PARITY_RTOL)
+        log(f"[parity model2d {name}] f64 {NX_PARITY}x{NY_PARITY} one step, "
+            f"GPU {secs['cuda']:.2f} s vs CPU {secs['cpu']:.2f} s: "
+            f"max|diff|/max {errs} <= {PARITY_RTOL:g}: ok")
+
 
 def main():
     name = phase_device()
@@ -2025,8 +2583,7 @@ def main():
     log(f"[phases 4-5] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     n3, ms3 = phase_slice3d(smi)
-    phase_parity3d()
-    log(f"[phases 6-7] {time.perf_counter() - t0:.1f} s")
+    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
     nm = {k: 0 for k in KERNELS}
     for phase, args in ((phase_model_ssprk33, (smi,)),
                         (phase_model_cn, (smi, n2, s2)),
@@ -2036,9 +2593,6 @@ def main():
         for k in KERNELS:
             nm[k] += n[k]
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_model_parity()
-    log(f"[phase_model_parity] {time.perf_counter() - t0:.1f} s")
     ng = {k: 0 for k in KERNELS}
     for phase, args in ((phase_model3d_gls, (smi, ms3)),
                         (phase_model3d_split, (smi,)),
@@ -2052,11 +2606,17 @@ def main():
     new = {}
     for key, phase in (("rofi", phase_model3d_rofi),
                        ("estuary", phase_model3d_estuary),
-                       ("couplings", phase_model3d_couplings)):
+                       ("couplings", phase_model3d_couplings),
+                       ("slice2d_tracers", phase_slice2d_tracers),
+                       ("wetting_drying", phase_wetting_drying),
+                       ("steppers2d", phase_other_steppers)):
         t0 = time.perf_counter()
         out = phase(smi)
         new[key] = out[0] if isinstance(out, tuple) else out
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_cases()
+    log(f"[phase_cases] {time.perf_counter() - t0:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -2071,7 +2631,11 @@ def main():
                                     "flowsolver3d_gls": ng[k],
                                     "rofi": new["rofi"][k],
                                     "estuary": new["estuary"][k],
-                                    "couplings3d": new["couplings"][k]},
+                                    "couplings3d": new["couplings"][k],
+                                    "slice2d_tracers":
+                                        new["slice2d_tracers"][k],
+                                    "wetting_drying": new["wetting_drying"][k],
+                                    "steppers2d": new["steppers2d"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2099,5 +2663,11 @@ if __name__ == "__main__":
         profile3d_estuary()
     elif sys.argv[1:] == ["profile3d_more"]:
         profile3d_more()
+    elif sys.argv[1:] == ["profile2d_tracers"]:
+        profile2d_tracers()
+    elif sys.argv[1:2] == ["thacker"] and len(sys.argv) == 3:
+        thacker_case(sys.argv[2])
+    elif sys.argv[1:] == ["standing_wave"]:
+        standing_wave_case()
     else:
         main()

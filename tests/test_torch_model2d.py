@@ -5,7 +5,8 @@ the coarse correction and with the Schur fieldsplit), ``iterate()`` with
 ``update_forcings``, a time-step callback and the volume callback (same
 iteration counts, export times, ``print_state`` lines and final state),
 ``create_iterator``, initial-condition interpolation, the demo's body
-through the port's facade, and the options the port refuses.
+through the port's facade, the options the port refuses and one step of
+each option the 2D slice newly takes.
 
 Tolerances: implicit steps 1e-9 and the explicit ``iterate`` runs 1e-12
 of each field's max; ``print_state`` lines equal but for the CPU-time
@@ -27,6 +28,8 @@ from thetis_tpu_torch.interop import flowsolver2d_from_reference  # noqa: E402
 from thetis_tpu_torch.model.callback import (  # noqa: E402
     VolumeConservation2DCallback as TVolume)
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d  # noqa: E402
+from thetis_tpu_torch.solvers.newton import (  # noqa: E402
+    NewtonParameters as TNewtonParameters)
 from thetis_tpu_torch.utils.constant import Constant as TConstant  # noqa: E402
 from test_torch_flowsolver2d import (  # noqa: E402
     CONFIGS, LX, meshes, one_torch_thread, reference_solver, run_pair)
@@ -288,10 +291,30 @@ def test_facade_mesh_on_the_cpu_when_asked(gen, monkeypatch):
     assert mesh.facet_is_interior.device.type == "cpu"
 
 
-def _opts_refused():
-    def tracer(o):
-        o.add_tracer_2d("tracer_2d")
+#: the facade's square meshes: (generator, arguments, cells)
+FACADE_SQUARES = {"SquareMesh": ((4, 3, 1e3), 24),
+                  "UnitSquareMesh": ((4, 4), 32)}
 
+
+@pytest.mark.parametrize("gen", sorted(FACADE_SQUARES))
+def test_facade_square_mesh_goes_to_the_card(gen, monkeypatch):
+    """``SquareMesh`` / ``UnitSquareMesh`` follow the facade's rule: the
+    card unless ``device=`` says otherwise; without one they raise, and
+    give the CPU mesh when asked."""
+    import thetis_tpu_torch as facade
+
+    args, nc = FACADE_SQUARES[gen]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(facade, gen)(*args)
+    mesh = getattr(facade, gen)(*args, device="cpu")
+    assert mesh.device.type == "cpu" and mesh.dtype == torch.float64
+    assert mesh.nc == nc
+    lx = args[2] if gen == "SquareMesh" else 1.0
+    assert np.ptp(mesh.coords_np[:, 0]) == np.ptp(mesh.coords_np[:, 1]) == lx
+
+
+def _opts_refused():
     def sediment(o):
         o.sediment_model_options.solve_suspended_sediment = True
 
@@ -304,28 +327,58 @@ def _opts_refused():
     def turbines(o):
         o.tidal_turbine_farms = {"everywhere": object()}
 
-    def wetting_drying(o):
-        o.use_wetting_and_drying = True
-
     def family(name):
         def f(o):
             o.element_family = name
         return f
 
-    def stepper(name):
-        def f(o):
-            o.swe_timestepper_type = name
-        return f
-
-    return {"tracer": tracer, "sediment": sediment, "exner": exner,
-            "nh": nh, "turbines": turbines, "wetting_drying": wetting_drying,
-            "dg-cg": family("dg-cg"), "rt-dg": family("rt-dg"),
-            "bdm-dg": family("bdm-dg"), "DIRK22": stepper("DIRK22"),
-            "PressureProjectionPicard": stepper("PressureProjectionPicard"),
-            "SteadyState": stepper("SteadyState")}
+    return {"sediment": (sediment, "A8c"), "exner": (exner, "A8c"),
+            "nh": (nh, "A8d"), "turbines": (turbines, "A8d"),
+            "dg-cg": (family("dg-cg"), "A8e"),
+            "rt-dg": (family("rt-dg"), "A8f"),
+            "bdm-dg": (family("bdm-dg"), "A8f")}
 
 
 REFUSED = _opts_refused()
+
+
+def _opts_ported():
+    """The options of the 2D slice that raised before it was ported, each
+    with what one step must show."""
+    def tracer(o):
+        o.add_tracer_2d("tracer_2d", source=1e-3)
+
+    def tracer_cg(o):
+        o.add_tracer_2d("tracer_2d", source=1e-3, diffusivity=1.0)
+        o.tracer_element_family = "cg"
+
+    def wetting_drying(o):
+        o.use_wetting_and_drying = True
+
+    def wetting_drying_automatic(o):
+        o.use_wetting_and_drying = True
+        o.use_automatic_wetting_and_drying_alpha = True
+
+    def stepper(name, **params):
+        def f(o):
+            o.swe_timestepper_type = name
+            if params:
+                o.swe_timestepper_options.solver_parameters = \
+                    TNewtonParameters(**params)
+        return f
+
+    return {"tracer": tracer, "tracer_cg": tracer_cg,
+            "wetting_drying": wetting_drying,
+            "wetting_drying_automatic": wetting_drying_automatic,
+            "DIRK22": stepper("DIRK22"), "DIRK33": stepper("DIRK33"),
+            "PressureProjectionPicard": stepper(
+                "PressureProjectionPicard", ksp_rtol=1e-6, ksp_max_it=60,
+                gmres_restart=30),
+            "SteadyState": stepper("SteadyState", snes_max_it=3,
+                                   line_search=True, dense=True)}
+
+
+PORTED = _opts_ported()
 
 
 def _port_solver(**opts):
@@ -340,9 +393,47 @@ def _port_solver(**opts):
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_unported_options_raise(what):
     s = _port_solver()
-    REFUSED[what](s.options)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    set_option, item = REFUSED[what]
+    set_option(s.options)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         s.initialize()
+
+
+@pytest.mark.parametrize("what", sorted(PORTED))
+def test_ported_options_step(what):
+    """Each option the 2D slice ported is taken (no raise) and one step
+    through ``iterate()`` moves the state and keeps it finite; parity
+    with the reference is in ``test_torch_model2d_tracers.py``,
+    ``test_torch_wetting_drying.py`` and ``test_torch_steppers2d.py``."""
+    _, tm = meshes("rect")
+    s = FlowSolver2d(tm, 20.0 + 5.0 * torch.as_tensor(tm.coords_np[:, 1])
+                     / 5e3)
+    o = s.options
+    o.no_exports = True
+    o.timestep = 60.0
+    o.simulation_export_time = 60.0
+    o.simulation_end_time = 60.0
+    PORTED[what](o)
+    s.bnd_functions["shallow_water"][1] = {"elev": 0.05}
+    s.bnd_functions["tracer"][1] = {"value": 2.0}
+    x = torch.as_tensor(tm.coords_np)[tm.cells]
+    kw = {}
+    if what.startswith("tracer"):
+        kw["tracer_2d"] = 1.0
+    s.assign_initial_conditions(
+        elev=0.3 * torch.exp(-((x[..., 0] - 5e3) / 2e3) ** 2), **kw)
+    start = {k: v.clone() for k, v in s._get_state().items()}
+    s.iterate()
+    assert s.iteration == 1
+    for k, v in s._get_state().items():
+        assert bool(torch.isfinite(v).all()), k
+    moved = "tracer_2d" if what.startswith("tracer") else "elev"
+    assert float((s._get_state()[moved] - start[moved]).abs().max()) > 1e-6
+    if what.startswith("wetting_drying"):
+        assert s.eq_sw.depth.use_wetting_and_drying
+        assert not getattr(s.timestepper, "assembled_solve", False)
+        if what.endswith("automatic"):
+            assert s.options.wetting_and_drying_alpha.data.shape == (tm.nv,)
 
 
 @pytest.mark.parametrize("what", ["exporters", "load_state", "hdf5",

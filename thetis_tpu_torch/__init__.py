@@ -21,9 +21,11 @@ Conventions:
 
 ``from thetis_tpu_torch import *`` gives the part of the thetis-style user
 namespace that the 2D model needs (``solver2d.FlowSolver2d``,
-``RectangleMesh``, ``FunctionSpace``, ``Function``, ``SpatialCoordinate``,
-``Constant``, ``exp``), so ``demos/demo_2d_channel.py`` runs with its one
-import line changed.  The facade's mesh generators put the mesh on the
+``RectangleMesh``, ``SquareMesh``, ``UnitSquareMesh``,
+``PeriodicRectangleMesh``, ``FunctionSpace``, ``Function``,
+``SpatialCoordinate``, ``Constant``, ``TracerFieldOptions``,
+``VertexBasedP1DGLimiter``, ``exp``), so ``demos/demo_2d_channel.py`` and
+``demos/demo_2d_tracer.py`` run with their import line changed.  The facade's mesh generators put the mesh on the
 CUDA device, in float64, unless ``device=``/``dtype=`` say otherwise;
 without a card they raise unless the caller asks for the CPU with
 ``device="cpu"``.  The rest of the reference's ``api.py`` waits for
@@ -31,18 +33,21 @@ ROADMAP A10.
 """
 import torch
 
+from .equations.limiter import VertexBasedP1DGLimiter
 from .fem.functionspace import Function, FunctionSpace, SpatialCoordinate
 from .mesh import generation as _generation
 from .model import flowsolver2d as solver2d
 from .model.flowsolver2d import FlowSolver2d
+from .model.options import TracerFieldOptions
 from .utils.constant import Constant
 from .utils.log import print_output
 
 __version__ = "0.1.0"
 
-__all__ = ["solver2d", "FlowSolver2d", "RectangleMesh",
-           "PeriodicRectangleMesh", "FunctionSpace", "Function",
-           "SpatialCoordinate", "Constant", "print_output", "exp", "pi"]
+__all__ = ["solver2d", "FlowSolver2d", "RectangleMesh", "SquareMesh",
+           "UnitSquareMesh", "PeriodicRectangleMesh", "FunctionSpace",
+           "Function", "SpatialCoordinate", "Constant", "TracerFieldOptions",
+           "VertexBasedP1DGLimiter", "print_output", "exp", "pi"]
 
 exp = torch.exp
 pi = float(torch.pi)
@@ -73,3 +78,19 @@ def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
     the facade's default device and dtype."""
     return _generation.PeriodicRectangleMesh(
         nx, ny, lx, ly, direction, name, device=_device(device), dtype=dtype)
+
+
+def SquareMesh(nx, ny, l, name="square", *, device=None,
+               dtype=torch.float64):
+    """:func:`thetis_tpu_torch.mesh.generation.SquareMesh` with the
+    facade's default device and dtype."""
+    return _generation.SquareMesh(nx, ny, l, name, device=_device(device),
+                                  dtype=dtype)
+
+
+def UnitSquareMesh(nx, ny, name="unitsquare", *, device=None,
+                   dtype=torch.float64):
+    """:func:`thetis_tpu_torch.mesh.generation.UnitSquareMesh` with the
+    facade's default device and dtype."""
+    return _generation.UnitSquareMesh(nx, ny, name, device=_device(device),
+                                      dtype=dtype)

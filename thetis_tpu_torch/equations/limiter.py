@@ -1,6 +1,19 @@
-"""Vertex-based P1DG slope limiter for prisms (Kuzmin 2010).
+"""Vertex-based P1DG slope limiters (Kuzmin 2010), for triangles and
+prisms.
 
-Port of ``thetis_tpu/equations/limiter.py::VertexBasedP1DGLimiter3D``:
+Port of ``thetis_tpu/equations/limiter.py``.  :class:`VertexBasedP1DGLimiter`
+(the 2D one, ref ``:23-82``):
+
+1. per-cell centroid means (the mean of the three nodal values),
+2. per-vertex bounds = min/max over the adjacent centroids
+   (``scatter_reduce`` ``amax``/``amin`` over the cell -> vertex map),
+   extended on exterior facets by the facet mean so boundary extrema are
+   not clipped,
+3. per-cell limiting factor alpha applied to the deviation from the mean;
+   the components of a vector field are limited independently, in one
+   pass.
+
+:class:`VertexBasedP1DGLimiter3D`:
 
 1. per-(cell, layer) centroid means,
 2. per-vertex bounds = min/max over the adjacent centroids (gathers over
@@ -12,12 +25,76 @@ Port of ``thetis_tpu/equations/limiter.py::VertexBasedP1DGLimiter3D``:
 
 Element means are preserved and uniform fields pass through unchanged.
 The incidence tables are built on the host in numpy, as the reference
-builds them.  The 2D limiter is not ported yet.
+builds them.
 """
 import numpy as np
 import torch
 
-__all__ = ["VertexBasedP1DGLimiter3D"]
+__all__ = ["VertexBasedP1DGLimiter", "VertexBasedP1DGLimiter3D"]
+
+
+class VertexBasedP1DGLimiter:
+    """Vertex-based slope limiter for P1DG triangle fields (nc, 3[, k])
+    (ref ``limiter.py:23-82``)."""
+
+    def __init__(self, space):
+        if space.family != "DG" or space.degree != 1:
+            raise ValueError("vertex-based limiter requires P1DG")
+        self.space = space
+        self.mesh = mesh = space.mesh
+        dev = mesh.device
+        self.cells = mesh.cells                   # (nc, 3): node d at vertex d
+        # boundary facets: owner cell and the two local nodes on the facet
+        # (local facet i is opposite vertex i)
+        bnd = np.nonzero(mesh.facet_is_boundary_np)[0]
+        self._has_bnd = len(bnd) > 0
+        own = np.asarray(mesh.facet_cells_np)[bnd, 0].astype(np.int64)
+        lf = np.asarray(mesh.facet_local_np)[bnd, 0].astype(np.int64)
+        n1, n2 = (lf + 1) % 3, (lf + 2) % 3
+        cells_np = np.asarray(mesh.cells_np)
+        self.bnd_cell = torch.as_tensor(own, device=dev)
+        self.bnd_n1 = torch.as_tensor(n1, device=dev)
+        self.bnd_n2 = torch.as_tensor(n2, device=dev)
+        # the vertices each bound takes a value at: every cell's three,
+        # then each boundary facet's two
+        self._targets = torch.as_tensor(np.concatenate(
+            [cells_np.ravel(), cells_np[own, n1], cells_np[own, n2]]
+        ).astype(np.int64), device=dev)
+
+    def _apply_multi(self, u):
+        """Limit ``u`` (nc, 3, k), all k components in one pass."""
+        nv = self.mesh.nv
+        k = u.shape[-1]
+        centroid = u.mean(dim=1)                  # (nc, k)
+        src = [centroid[:, None].expand(-1, 3, -1).reshape(-1, k)]
+        if self._has_bnd:
+            fmean = 0.5 * (u[self.bnd_cell, self.bnd_n1]
+                           + u[self.bnd_cell, self.bnd_n2])  # (nb, k)
+            src += [fmean, fmean]
+        src = torch.cat(src)
+        idx = self._targets[:, None].expand(-1, k)
+        big = torch.finfo(u.dtype).max
+        qmax = u.new_full((nv, k), -big).scatter_reduce(
+            0, idx, src, "amax")
+        qmin = u.new_full((nv, k), big).scatter_reduce(0, idx, src, "amin")
+        vmax = qmax[self.cells]                   # (nc, 3, k)
+        vmin = qmin[self.cells]
+        cb = centroid[:, None]
+        dev = u - cb
+        eps = 1e-14
+        up = torch.where(dev > eps, (vmax - cb) / torch.clamp_min(dev, eps),
+                         1.0)
+        dn = torch.where(dev < -eps,
+                         (vmin - cb) / torch.clamp_max(dev, -eps), 1.0)
+        alpha = torch.clamp(torch.minimum(up, dn), 0.0, 1.0).amin(dim=1)
+        return cb + alpha[:, None] * dev
+
+    def apply(self, u):
+        """Limit a (nc, 3) or (nc, 3, k) dof tensor (each component on
+        its own); returns the limited tensor."""
+        if u.dim() == 3:
+            return self._apply_multi(u)
+        return self._apply_multi(u[..., None])[..., 0]
 
 
 class VertexBasedP1DGLimiter3D:

@@ -19,9 +19,13 @@ continuity (d eta/dt = ...):
   ContinuitySourceTerm           (ref L814-831)   source
 
 :class:`ModeSplit2DEquations` is the reduced barotropic system of the 3D
-mode-split step.  Wetting-and-drying and tidal turbines are not ported
-yet: the equation raises ``NotImplementedError`` when either is
-requested.
+mode-split step.  With ``use_wetting_and_drying`` the total depth gains
+the bathymetry displacement of Karna et al. (2011), with alpha a scalar
+or a P1 field, and the continuity row's mass term the displaced
+volume (ref L834-850); ``mass_inverse`` stays the exact DG block
+inverse, which is then only a preconditioner.  Tidal turbines are not
+ported yet: the equation raises ``NotImplementedError`` naming ROADMAP
+A8d.
 
 Every term is functional (out-of-place updates, no host reads, no
 branching on tensor values), so the value-space block assembly
@@ -51,17 +55,34 @@ def _safe_mag(sq):
 
 
 class DepthExpression:
-    """Total-depth expression (ref ``thetis/utility.py:936-995``).  The
-    wetting-and-drying displacement is not ported yet."""
+    """Total-depth expression incl. the wetting-and-drying displacement
+    (ref ``thetis/utility.py:936-995``, Karna et al. 2011).
 
-    def __init__(self, use_nonlinear_equations=True):
+    ``alpha`` may be a scalar or a tensor evaluated at the same points as
+    ``bathy``/``eta`` (the spatially varying automatic alpha); when
+    omitted the default scalar is used."""
+
+    def __init__(self, use_nonlinear_equations=True,
+                 use_wetting_and_drying=False, wetting_and_drying_alpha=0.5):
         self.use_nonlinear_equations = use_nonlinear_equations
-        self.use_wetting_and_drying = False
+        self.use_wetting_and_drying = use_wetting_and_drying
+        self.alpha = wetting_and_drying_alpha
 
-    def total_depth(self, bathy, eta):
+    def wd_displacement(self, bathy, eta, alpha=None):
+        if not self.use_wetting_and_drying:
+            return torch.zeros_like(eta)
+        a = self.alpha if alpha is None else alpha
+        h = bathy + eta
+        return 0.5 * (torch.sqrt(h**2 + a**2) - h)
+
+    def total_depth(self, bathy, eta, alpha=None):
         if not self.use_nonlinear_equations:
             return bathy * torch.ones_like(eta)
-        return bathy + eta
+        return bathy + eta + self.wd_displacement(bathy, eta, alpha)
+
+
+def _is_scalar(a):
+    return np.isscalar(a) or getattr(a, "ndim", 1) == 0
 
 
 class ShallowWaterEquations(EquationBase):
@@ -73,16 +94,18 @@ class ShallowWaterEquations(EquationBase):
         :arg bathymetry: dof array: CG1 (nv,), DG (nc, nd) or scalar
         :arg bnd_conditions: {marker: {'elev'/'uv'/'un'/'flux'/'drag': value}}
         """
-        if getattr(options, "use_wetting_and_drying", False):
-            raise NotImplementedError(
-                "wetting-and-drying is not ported to thetis_tpu_torch yet")
         if tidal_farms:
             raise NotImplementedError(
-                "tidal turbine farms are not ported to thetis_tpu_torch yet")
+                "tidal turbine farms are not ported to thetis_tpu_torch yet "
+                "(ROADMAP A8d)")
         super().__init__(mesh, asm, bnd_conditions)
         self.options = options
+        a0 = getattr(options, "wetting_and_drying_alpha", 0.5)
         self.depth = DepthExpression(
-            use_nonlinear_equations=options.use_nonlinear_equations)
+            use_nonlinear_equations=options.use_nonlinear_equations,
+            use_wetting_and_drying=getattr(options, "use_wetting_and_drying",
+                                           False),
+            wetting_and_drying_alpha=float(a0) if _is_scalar(a0) else 0.5)
         self.g = physical_constants["g_grav"]
         self.rho0 = physical_constants["rho0"]
 
@@ -113,6 +136,19 @@ class ShallowWaterEquations(EquationBase):
         self.bathy_grad_q = self._any_cell_grad(bathymetry)
         # both-side traces (nf, 2, nqf); identical sides unless bathymetry is DG
         self.bathy_tr = facet_quad_value_2s(asm, bathymetry)
+        # wetting-and-drying alpha at the same sites (may be a P1 field)
+        a = getattr(self.options, "wetting_and_drying_alpha", 0.5)
+        if hasattr(a, "data"):
+            a = a.data
+        if _is_scalar(a):
+            self.alpha_q = self.alpha_tr = float(a)
+        else:
+            self.alpha_q = self._any_cell_q(a)
+            self.alpha_tr = facet_quad_value_2s(asm, a)
+
+    def _alpha_tr0(self):
+        a = self.alpha_tr
+        return a if isinstance(a, float) else a[:, 0]
 
     def _any_cell_q(self, val, vector=False):
         return coefficient_cell_q(self.asm, val, vector=vector)
@@ -166,7 +202,7 @@ class ShallowWaterEquations(EquationBase):
                 # 'flux': area from external elevation if given, else the
                 # internal one (ref L249-253 vs L263-267)
                 b0 = self.bathy_tr[:, 0] if bathy_tr0 is None else bathy_tr0
-                h_ext = self.depth.total_depth(b0, e_m)
+                h_ext = self.depth.total_depth(b0, e_m, self._alpha_tr0())
                 area = h_ext * self.mesh.boundary_len.get(m, 1.0)
                 u_m = (facet_quad_value(asm, vals["flux"])
                        / area)[..., None] * nf_n
@@ -194,13 +230,15 @@ class ShallowWaterEquations(EquationBase):
         c["eta_q"] = pq[..., 2]
         c["uv_old_q"] = pq[..., 3:5]
         c["eta_old_q"] = pq[..., 5]
-        c["H_q"] = self.depth.total_depth(c["bathy_q"], c["eta_old_q"])
+        c["H_q"] = self.depth.total_depth(c["bathy_q"], c["eta_old_q"],
+                                          self.alpha_q)
         ptr = asm.facet_traces(packed)  # (nf, 2, nqf, 6)
         c["uv_tr"] = ptr[..., 0:2]
         c["eta_tr"] = ptr[..., 2]
         c["uv_old_tr"] = ptr[..., 3:5]
         c["eta_old_tr"] = ptr[..., 5]
-        c["H_tr"] = self.depth.total_depth(c["bathy_tr"], c["eta_old_tr"])
+        c["H_tr"] = self.depth.total_depth(c["bathy_tr"], c["eta_old_tr"],
+                                           self.alpha_tr)
         c["n"] = self.mesh.facet_normal[:, None, :]  # (nf,1,2)
 
         # boundary externals (current and old linearisation states)
@@ -274,8 +312,8 @@ class ShallowWaterEquations(EquationBase):
         eta_b, uv_b = c["eta_tr"][:, 0], c["uv_tr"][:, 0]
         eta_old_b, uv_old_b = c["eta_old_tr"][:, 0], c["uv_old_tr"][:, 0]
         H_b = c["H_tr"][:, 0]
-        H_ext_old = self.depth.total_depth(c["bathy_tr"][:, 0],
-                                           c["eta_ext_old"])
+        H_ext_old = self.depth.total_depth(
+            c["bathy_tr"][:, 0], c["eta_ext_old"], self._alpha_tr0())
         h_av = 0.5 * (H_b + H_ext_old)
         h_av_safe = torch.clamp_min(torch.abs(h_av), 1e-12)
         un_rie = 0.5 * ((uv_b + c["uv_ext"]) * n).sum(-1) + torch.sqrt(
@@ -283,7 +321,8 @@ class ShallowWaterEquations(EquationBase):
         un_jump_old = ((uv_old_b - c["uv_ext_old"]) * n).sum(-1)
         eta_rie = 0.5 * (eta_old_b + c["eta_ext_old"]) + torch.sqrt(
             h_av_safe / g) * un_jump_old
-        h_rie = self.depth.total_depth(c["bathy_tr"][:, 0], eta_rie)
+        h_rie = self.depth.total_depth(c["bathy_tr"][:, 0], eta_rie,
+                                       self._alpha_tr0())
         contrib = -h_rie * un_rie * self._mask_q(self.mask_open)
         B["eta_facet"].add(
             torch.stack([contrib, torch.zeros_like(contrib)], dim=1))
@@ -597,13 +636,20 @@ class ShallowWaterEquations(EquationBase):
         return swe_state(r_uv, r_eta)
 
     def mass_term(self, solution):
-        """M(sol)."""
+        """M(sol); with wetting-and-drying the continuity row gains the
+        bathymetry-displacement term (ref L834-850, L914-920)."""
         asm = self.asm
-        return swe_state(asm.mass_apply(solution["uv"]),
-                         asm.mass_apply(solution["elev"]))
+        m_eta = asm.mass_apply(solution["elev"])
+        if self.depth.use_wetting_and_drying:
+            eta_q = asm.cell_values(solution["elev"])
+            disp = self.depth.wd_displacement(self.bathy_q, eta_q,
+                                              self.alpha_q)
+            m_eta = m_eta + asm.cell_to_dofs(disp)
+        return swe_state(asm.mass_apply(solution["uv"]), m_eta)
 
     def mass_inverse(self, r):
-        """Exact block inverse."""
+        """Exact block inverse (only a preconditioner under
+        wetting-and-drying)."""
         asm = self.asm
         return swe_state(asm.mass_inverse(r["uv"]),
                          asm.mass_inverse(r["elev"]))

@@ -153,9 +153,12 @@ def _basis_rows(T, G):
     return E7, Eg2
 
 
-def swe_mass_blocks(eq, dtype):
+def swe_mass_blocks(eq, u_lag, dtype):
     """Packed diagonal blocks of the mass operator, component-major
-    (9, 9, nc): the DG mass matrix per component."""
+    (9, 9, nc): the DG mass matrix per component, plus the
+    wetting-and-drying displacement Jacobian d(disp)/d(eta) at ``u_lag``
+    on the continuity rows when enabled (ref ``shallowwater_eq.py:834-850``
+    displaced mass)."""
     asm = eq.asm
     mesh = asm.mesh
     Mc = np.asarray(asm._Mref_np)                        # (nd, nd)
@@ -166,7 +169,17 @@ def swe_mass_blocks(eq, dtype):
             for a in range(2):
                 Mfull[3 + 2 * dt_ + a, 3 + 2 * et + a] = Mc[dt_, et]
     detJ = mesh.detJ.to(dtype)
-    return detJ.new_tensor(Mfull)[:, :, None] * detJ
+    blocks = detJ.new_tensor(Mfull)[:, :, None] * detJ
+    if eq.depth.use_wetting_and_drying:
+        eta_q0 = asm.cell_values(u_lag["elev"])
+        _, dd = torch.func.jvp(
+            lambda e: eq.depth.wd_displacement(eq.bathy_q, e, eq.alpha_q),
+            (eta_q0,), (torch.ones_like(eta_q0),))
+        # eta rows: sum_q w phi_i (d disp/d eta_q) phi_j
+        phi = asm.space.phi
+        add = torch.einsum("cq,qi,qj->ijc", asm.wdetJ * dd, phi, phi)
+        blocks = blocks + torch.nn.functional.pad(add, (0, 0, 0, 6, 0, 6))
+    return blocks
 
 
 def _project_buckets(eq, f0):
@@ -290,7 +303,7 @@ def assemble_swe_blocks(eq, u_lag, fields, bnd_values, coeff,
         slots.append(opp_l * (1.0 - bnd_l))
     J_T = torch.stack([diag_acc] + slots).permute(0, 2, 1).reshape(4, 9, 9, nc)
     A_T = -coeff * J_T
-    A_T[0] += swe_mass_blocks(eq, dtype)
+    A_T[0] += swe_mass_blocks(eq, u_lag, dtype)
     A_T = A_T.contiguous()
     if return_residual:
         return A_T, _project_buckets(eq, f0)

@@ -5,7 +5,7 @@ per-cell tensors ``(nc, ndofs)`` (scalars) or ``(nc, ndofs, dim)``
 (vectors); CG P1 dofs live in per-vertex tensors ``(nv[, dim])`` with the
 cell->vertex map as the cell node map.  Every tensor is on the mesh's
 device, in the mesh's dtype.  CG P2 (the ``dg-cg`` family's elevation)
-waits for ROADMAP A8.
+waits for ROADMAP A8e.
 """
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ class FunctionSpace:
         if family == "CG" and degree != 1:
             raise NotImplementedError(
                 f"CG{degree} is not ported to thetis_tpu_torch yet "
-                "(ROADMAP A8: the dg-cg family)")
+                "(ROADMAP A8e: the dg-cg family)")
         if family not in ("DG", "CG"):
             raise ValueError(f"unknown function space family {family!r}")
         self.mesh = mesh

@@ -12,7 +12,8 @@ import torch
 __all__ = ["state_from_numpy", "state_to_numpy", "fields_from_numpy",
            "fields_to_numpy", "bathymetry_from_numpy", "bathymetry_to_numpy",
            "state3d_from_numpy", "state3d_to_numpy", "state3d_keys",
-           "flowsolver3d_from_numpy", "flowsolver2d_from_reference"]
+           "flowsolver3d_from_numpy", "flowsolver2d_from_reference",
+           "wd_alpha_from_numpy"]
 
 _STATE_KEYS = ("elev", "uv")
 #: the 3D step's state dict (``FlowSolver._get_state``) under the default
@@ -61,7 +62,9 @@ def _to_numpy(v):
 
 
 def state_from_numpy(d, device, dtype):
-    """``{"uv": (nc,3,2), "elev": (nc,3)}`` numpy arrays -> tensors."""
+    """``{"uv": (nc,3,2), "elev": (nc,3)}`` numpy arrays -> tensors.  A
+    tracer system's state (``{label: (nc, 3) or (nv,)}``) is
+    ``fields_from_numpy``'s."""
     if sorted(d) != list(_STATE_KEYS):
         raise KeyError(f"swe state needs keys {_STATE_KEYS}, got {sorted(d)}")
     return {k: _to_tensor(v, device, dtype) for k, v in d.items()}
@@ -91,6 +94,22 @@ def bathymetry_from_numpy(b, device, dtype):
 
 def bathymetry_to_numpy(b):
     return float(b) if np.isscalar(b) else _to_numpy(b)
+
+
+def wd_alpha_from_numpy(alpha, mesh2d):
+    """A wetting-and-drying alpha: a scalar stays a float, a P1 array
+    ``(nv,)`` becomes a CG1 :class:`~.fem.functionspace.Function` on
+    ``mesh2d`` (the form ``set_wetting_and_drying_alpha`` gives)."""
+    from .fem.functionspace import Function, FunctionSpace
+
+    if np.isscalar(alpha) or np.ndim(alpha) == 0:
+        return float(alpha)
+    a = np.asarray(alpha, dtype=np.float64)
+    if a.shape != (mesh2d.nv,):
+        raise ValueError(f"alpha must be a scalar or P1 (nv,), got "
+                         f"{a.shape}")
+    return Function(FunctionSpace(mesh2d, "CG", 1), name="wd_alpha",
+                    data=_to_tensor(a, mesh2d.device, mesh2d.dtype))
 
 
 def state3d_from_numpy(d, device, dtype, options=None):
@@ -156,15 +175,35 @@ def _option_value(v, device, dtype, mesh=None):
     raise TypeError(f"cannot carry option value of type {kind} to the port")
 
 
+def _tracer_options(ro, conv):
+    """The port's TracerFieldOptions for each of the reference's: the
+    numbers and names as they are, a source or diffusivity converted (a
+    callable source, which reads the reference's arrays, is left to the
+    caller: it becomes None)."""
+    from .model.options import TracerFieldOptions
+
+    out = {}
+    for label, t in ro.items():
+        out[label] = TracerFieldOptions(
+            label, name=t.name, filename=t.filename, shortname=t.shortname,
+            unit=t.unit,
+            source=None if callable(t.source) else conv(t.source),
+            diffusivity=conv(t.diffusivity),
+            use_conservative_form=t.use_conservative_form)
+    return out
+
+
 def flowsolver2d_from_reference(ref, mesh2d):
     """The port's :class:`~thetis_tpu_torch.model.flowsolver2d.FlowSolver2d`
     on ``mesh2d`` (its device and dtype), set up from a reference
     ``FlowSolver2d`` through numpy: the bathymetry, every option value
-    (the SWE stepper type first, then its stepper options), the
-    shallow-water boundary data and, when the reference is initialized,
-    its ``uv_2d``/``elev_2d`` state and time counters (the port solver is
-    then initialized too).  The reference is read, never changed, and
-    nothing of JAX is imported: array values go through ``np.asarray``."""
+    (the SWE and tracer stepper types first, then their stepper options;
+    the tracers' options, a callable tracer source excepted), the
+    shallow-water and tracer boundary data and, when the reference is
+    initialized, its state (``uv_2d``, ``elev_2d`` and each tracer) and
+    time counters (the port solver is then initialized too).  The
+    reference is read, never changed, and nothing of JAX is imported:
+    array values go through ``np.asarray``."""
     from .model.flowsolver2d import FlowSolver2d
 
     dev, dt = mesh2d.device, mesh2d.dtype
@@ -176,22 +215,28 @@ def flowsolver2d_from_reference(ref, mesh2d):
                                         dev, dt))
     ro, po = ref.options, s.options
     po.swe_timestepper_type = ro.swe_timestepper_type
+    po.tracer_timestepper_type = ro.tracer_timestepper_type
     for k, v in vars(ro).items():
-        if k.startswith("_") or k in _SUB_OPTIONS or k == "swe_timestepper_type":
+        if (k.startswith("_") or k in _SUB_OPTIONS
+                or k.endswith("_timestepper_type")):
             continue
-        setattr(po, k, conv(v))
-    for k, v in vars(ro.swe_timestepper_options).items():
-        if not k.startswith("_"):
-            setattr(po.swe_timestepper_options, k, conv(v))
-    for marker, spec in ref.bnd_functions["shallow_water"].items():
-        s.bnd_functions["shallow_water"][marker] = {
-            k: conv(v) for k, v in spec.items()}
+        if k == "tracer":
+            po.tracer = _tracer_options(v, conv)
+        else:
+            setattr(po, k, conv(v))
+    for sub in ("swe_timestepper_options", "tracer_timestepper_options"):
+        for k, v in vars(getattr(ro, sub)).items():
+            if not k.startswith("_"):
+                setattr(getattr(po, sub), k, conv(v))
+    for which in ("shallow_water", "tracer"):
+        for marker, spec in ref.bnd_functions[which].items():
+            s.bnd_functions[which][marker] = {
+                k: conv(v) for k, v in spec.items()}
     if getattr(ref, "_initialized", False):
         s.initialize()
-        s.fields.uv_2d.data = _to_tensor(np.asarray(ref.fields.uv_2d.data),
-                                         dev, dt)
-        s.fields.elev_2d.data = _to_tensor(
-            np.asarray(ref.fields.elev_2d.data), dev, dt)
+        for key in ["uv_2d", "elev_2d"] + list(ref.tracer_labels):
+            s.fields[key].data = _to_tensor(
+                np.asarray(ref.fields[key].data), dev, dt)
         s.simulation_time = float(ref.simulation_time)
         s.iteration = int(ref.iteration)
         s.i_export = int(ref.i_export)

@@ -1,6 +1,6 @@
-"""Built-in mesh generators (port of ``thetis_tpu/mesh/generation.py``,
-``RectangleMesh`` and ``PeriodicRectangleMesh``), mirroring Firedrake's
-utility meshes.  The host tables are built by the same numpy code as the
+"""Built-in mesh generators (port of ``thetis_tpu/mesh/generation.py``:
+``RectangleMesh``, ``SquareMesh``, ``UnitSquareMesh`` and
+``PeriodicRectangleMesh``), mirroring Firedrake's utility meshes.  The host tables are built by the same numpy code as the
 reference, so both packages produce identical connectivity.
 
 Boundary marker convention matches Firedrake's RectangleMesh:
@@ -10,7 +10,8 @@ import numpy as np
 
 from .mesh2d import Mesh2d
 
-__all__ = ["RectangleMesh", "PeriodicRectangleMesh"]
+__all__ = ["RectangleMesh", "SquareMesh", "UnitSquareMesh",
+           "PeriodicRectangleMesh"]
 
 
 def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
@@ -51,6 +52,16 @@ def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
 
     return Mesh2d(coords, cells, boundary_markers=markers, name=name,
                   device=device, dtype=dtype)
+
+
+def SquareMesh(nx, ny, l, name="square", *, device, dtype):
+    return RectangleMesh(nx, ny, l, l, name=name, device=device,
+                         dtype=dtype)
+
+
+def UnitSquareMesh(nx, ny, name="unitsquare", *, device, dtype):
+    return RectangleMesh(nx, ny, 1.0, 1.0, name=name, device=device,
+                         dtype=dtype)
 
 
 def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",

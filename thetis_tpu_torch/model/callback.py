@@ -4,13 +4,13 @@
 Mirrors the reference's ``thetis/callback.py``: a ``CallbackManager`` with
 'export'/'timestep' evaluation modes (ref L14-59), a ``DiagnosticCallback``
 base (name, variable_names, ``__call__``, ``message_str``; ref L162-302),
-the 2D and 3D volume conservation callbacks (ref L335-364), the 3D tracer
-mass callback (ref L367-382) and the overshoot callbacks (ref L434-484).
+the 2D and 3D volume conservation callbacks (ref L335-364), the 3D and 2D
+tracer mass callbacks (ref L367-409) and the overshoot callbacks (ref
+L434-484).
 A callback reads its values on the host, once per evaluation.
 
 Not ported yet: the HDF5 time series (``export_to_hdf5=True`` raises,
-ROADMAP A10) and the 2D tracer mass, detector and time-series callbacks
-(A8/A10).
+ROADMAP A10) and the detector and time-series callbacks (A10).
 """
 from collections import OrderedDict
 
@@ -19,7 +19,8 @@ from ..utils.log import print_output
 __all__ = ["CallbackManager", "DiagnosticCallback",
            "ScalarConservationCallback", "VolumeConservation2DCallback",
            "VolumeConservation3DCallback",
-           "TracerMassConservation3DCallback", "MinMaxConservationCallback",
+           "TracerMassConservation3DCallback",
+           "TracerMassConservation2DCallback", "MinMaxConservationCallback",
            "TracerOvershootCallBack"]
 
 
@@ -133,6 +134,19 @@ class TracerMassConservation3DCallback(ScalarConservationCallback):
 
         def mass():
             return solver_obj.compute_tracer_mass_3d(tracer_name)
+
+        super().__init__(mass, solver_obj, **kwargs)
+
+
+class TracerMassConservation2DCallback(ScalarConservationCallback):
+    """depth-integrated tracer mass (ref ``callback.py:385-409``)."""
+
+    def __init__(self, tracer_name, solver_obj, **kwargs):
+        self.name = tracer_name + " mass"
+        self.variable_names = ["integral", "relative_difference"]
+
+        def mass():
+            return solver_obj.compute_tracer_mass(tracer_name)
 
         super().__init__(mass, solver_obj, **kwargs)
 

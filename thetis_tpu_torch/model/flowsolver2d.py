@@ -12,25 +12,33 @@ reference's jitted advance and its ``lax.scan`` over an export interval
 are a Python loop over the stepper's ``advance`` here; the export cadence
 and the iteration counters follow the reference exactly.
 
-Time steppers: SSPRK33, ForwardEuler, CrankNicolson and BackwardEuler.
-The implicit SWE solve is set up as in the reference: the semi-implicit
-CN assembles the exact step system every step and solves it with
-block-Jacobi FGMRES, with the setup-time coarse correction or Schur
-fieldsplit chosen by the implicit wave CFL (:meth:`_build_coarse`); the
-Newton CN (``use_semi_implicit_linearization = False``) is preconditioned
-by the setup-time ``AssembledWavePC`` (:meth:`_swe_preconditioner`).
+Time steppers: every one of the reference's ``get_stepper``.  The
+implicit SWE solve is set up as in the reference: the semi-implicit CN,
+BackwardEuler and DIRK22/DIRK33 assemble the exact step (stage) system
+and solve it with block-Jacobi FGMRES, with the setup-time coarse
+correction or Schur fieldsplit chosen by the implicit wave CFL
+(:meth:`_build_coarse`; a DIRK's from its diagonal a_ii dt); the Newton
+CN (``use_semi_implicit_linearization = False``) is preconditioned by
+the setup-time ``AssembledWavePC`` (:meth:`_swe_preconditioner`).
 (The CN options class sets that switch to False and its parent class
 then sets it to True, so the CN a user gets by default is the
 semi-implicit one, in the reference as here.)  On a CUDA mesh every
 9x9 ring matvec and block-Jacobi apply of these solves is a hand-written
-kernel (``kernels/ringmv.py``).
+kernel (``kernels/ringmv.py``).  Wetting-and-drying (constant or
+automatic alpha) keeps the SWE off the assembled path, as in the
+reference: its solves are the matrix-free Newton ones.
+
+2D tracers (DG or CG1, one or several, with the vertex-based limiter,
+sources, callable reaction sources and the tracer Picard sweeps) are
+stepped after the SWE in each step, as the reference's coupled
+integrator does; ``tracer_only`` skips the SWE.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: tracers, sediment, Exner, the non-hydrostatic pressure, tidal
-turbines, wetting-and-drying, the ``dg-cg``/``rt-dg``/``bdm-dg`` families
-and the DIRK/IMEX/PressureProjectionPicard/SteadyState steppers (A8);
-``differentiable_forward`` (A9); exporters (``no_exports=False``), the
-diagnostic HDF5 series and ``load_state`` (A10).
+item: sediment and Exner (A8c), tidal turbines and the non-hydrostatic
+pressure (A8d), the ``dg-cg`` (A8e) and ``rt-dg``/``bdm-dg`` (A8f)
+families and sphere meshes (A8g); ``differentiable_forward`` (A9);
+exporters (``no_exports=False``), the diagnostic HDF5 series and
+``load_state`` (A10).
 """
 import time as time_mod
 
@@ -38,21 +46,25 @@ import numpy as np
 import torch
 
 from ..config import physical_constants
+from ..equations.limiter import VertexBasedP1DGLimiter
 from ..equations.shallowwater_2d import ShallowWaterEquations
+from ..equations.tracer_2d import TracerEquation2D, TracerEquation2DCG
 from ..fem.assembly import DGAssembler
 from ..fem.functionspace import Function, FunctionSpace
 from ..solvers.newton import NewtonParameters
-from ..timeintegration.steppers import _UNPORTED, get_stepper
+from ..timeintegration.rungekutta import SCHEMES
+from ..timeintegration.steppers import CrankNicolson, get_stepper
 from ..utils.constant import Constant
 from ..utils.log import print_output
-from .callback import CallbackManager, VolumeConservation2DCallback
-from .field_defs import FieldDict
+from .callback import (CallbackManager, TracerMassConservation2DCallback,
+                       TracerOvershootCallBack, VolumeConservation2DCallback)
+from .field_defs import FieldDict, field_metadata
 from .options import ModelOptions2d
 
 __all__ = ["FlowSolver2d"]
 
 
-def _unported(what, item="A8"):
+def _unported(what, item):
     return NotImplementedError(
         f"{what} is not ported to thetis_tpu_torch yet (ROADMAP {item})")
 
@@ -108,30 +120,28 @@ class FlowSolver2d:
         """Raise for every option whose code path is not ported."""
         o = self.options
         family = o.element_family
-        if family in ("dg-cg", "rt-dg", "bdm-dg"):
-            raise _unported(f"the {family} element family")
+        items = {"dg-cg": "A8e", "rt-dg": "A8f", "bdm-dg": "A8f"}
+        if family in items:
+            raise _unported(f"the {family} element family", items[family])
         if family != "dg-dg":
             raise ValueError(f"unknown element family {family!r}")
         if getattr(self.mesh2d, "geometric_dimension", 2) == 3:
-            raise _unported("manifold (sphere) meshes")
+            raise _unported("manifold (sphere) meshes", "A8g")
         so = o.sediment_model_options
         nho = o.nh_model_options
         checks = [
-            (len(o.tracer) > 0 or o.tracer_only, "2D tracers"),
             (so is not None and so.solve_suspended_sediment,
-             "suspended sediment"),
-            (so is not None and so.use_exner, "the Exner bed evolution"),
-            (nho is not None and nho.solve_nonhydrostatic_pressure,
-             "the non-hydrostatic pressure"),
+             "suspended sediment", "A8c"),
+            (so is not None and so.use_exner, "the Exner bed evolution",
+             "A8c"),
             (bool(o.tidal_turbine_farms or o.discrete_tidal_turbine_farms),
-             "tidal turbine farms"),
-            (o.use_wetting_and_drying, "wetting-and-drying"),
-            (o.swe_timestepper_type in _UNPORTED,
-             f"the {o.swe_timestepper_type} time stepper"),
+             "tidal turbine farms", "A8d"),
+            (nho is not None and nho.solve_nonhydrostatic_pressure,
+             "the non-hydrostatic pressure", "A8d"),
         ]
-        for bad, what in checks:
+        for bad, what, item in checks:
             if bad:
-                raise _unported(what)
+                raise _unported(what, item)
 
     # ------------------------------------------------------------------
     def create_function_spaces(self):
@@ -146,6 +156,8 @@ class FlowSolver2d:
         fs.P1DG_2d = FunctionSpace(mesh, "DG", 1)
         fs.U_2d = FunctionSpace(mesh, "DG", p, dim=2)
         fs.H_2d = FunctionSpace(mesh, "DG", p)
+        fs.Q_2d = (fs.P1_2d if self.options.tracer_element_family == "cg"
+                   else fs.P1DG_2d)
         self.asm = DGAssembler(mesh, FunctionSpace(mesh, "DG", p))
         self._functions_created = False
 
@@ -166,25 +178,91 @@ class FlowSolver2d:
             f.bathymetry_2d = Function(fs.H_2d, name="Bathymetry", data=b)
         f.elev_2d = Function(fs.H_2d, name="elev_2d")
         f.uv_2d = Function(fs.U_2d, name="uv_2d")
-        self.tracer_labels = []
-        self.solve_tracer = False
+        self.tracer_labels = list(self.options.tracer.keys())
+        for label in self.tracer_labels:
+            if label not in field_metadata:
+                meta = self.options.tracer[label]
+                field_metadata[label] = dict(
+                    name=meta.name, shortname=meta.shortname, unit=meta.unit,
+                    filename=meta.filename)
+            f[label] = Function(fs.Q_2d, name=label)
+        self.solve_tracer = len(self.tracer_labels) > 0
         self.solve_nh = False
         self.solve_sediment = False
         self.solve_exner = False
         self._functions_created = True
 
+    def set_wetting_and_drying_alpha(self):
+        """Automatic wetting-drying alpha ~ |L_x grad(h)| capped to
+        [alpha_min, alpha_max] (ref ``solver2d.py:251-303``); host numpy,
+        the result a P1 field."""
+        o = self.options
+        if not o.use_wetting_and_drying:
+            return
+        if not o.use_automatic_wetting_and_drying_alpha:
+            print_output("Using constant wetting and drying parameter "
+                         f"(value {float(o.wetting_and_drying_alpha):.2f})")
+            return
+        mesh = self.mesh2d
+        b = self.fields.bathymetry_2d.data.detach().cpu().numpy()
+        cells = mesh.cells_np
+        if b.ndim == 0:
+            bv = np.full((mesh.nc, 3), float(b))
+        elif b.shape[:1] == (mesh.nv,):
+            bv = b[cells]  # CG1 -> (nc, 3)
+        elif b.shape[:2] == (mesh.nc, 3):
+            bv = b[:, :, 0] if b.ndim == 3 else b
+        else:
+            raise ValueError("cannot derive automatic alpha from bathymetry "
+                             f"of shape {b.shape}")
+        # grad = Jinv^T @ dphi^T b, dphi rows [-1,-1],[1,0],[0,1]
+        gref = np.stack([bv[:, 1] - bv[:, 0], bv[:, 2] - bv[:, 0]], axis=1)
+        grad = np.einsum("cj,cji->ci", gref, mesh.Jinv_np)
+        p = mesh.coords_np[cells]
+        widths = p.max(axis=1) - p.min(axis=1)  # (nc, 2) x/y extents
+        alpha_cell = (widths * np.abs(grad)).sum(axis=1)
+        if o.wetting_and_drying_alpha_max is not None:
+            alpha_cell = np.minimum(alpha_cell,
+                                    float(o.wetting_and_drying_alpha_max))
+        if o.wetting_and_drying_alpha_min is not None:
+            alpha_cell = np.maximum(alpha_cell,
+                                    float(o.wetting_and_drying_alpha_min))
+        # P1 vertex values: max over the adjacent cells
+        alpha_v = np.zeros(mesh.nv)
+        np.maximum.at(alpha_v, cells.ravel(), np.repeat(alpha_cell, 3))
+        o.wetting_and_drying_alpha = Function(
+            self.function_spaces.P1_2d, name="wd_alpha",
+            data=self._tensor(alpha_v))
+        print_output("Using spatially varying wetting and drying parameter "
+                     f"(min {alpha_v.min():.2f} max {alpha_v.max():.2f})")
+
     def create_equations(self):
         self._check_options()
         if not self._functions_created:
             self.create_fields()
+        o = self.options
+        self.set_wetting_and_drying_alpha()
+        bathy = self.fields.bathymetry_2d.data
         self.tidal_farms = []
         self.eq_sw = ShallowWaterEquations(
-            self.mesh2d, self.asm, self.options,
-            bathymetry=self.fields.bathymetry_2d.data,
+            self.mesh2d, self.asm, o, bathymetry=bathy,
             bnd_conditions=self.bnd_functions["shallow_water"],
             tidal_farms=self.tidal_farms,
         )
         self.depth = self.eq_sw.depth
+        if self.solve_tracer:
+            tracer_cls = (TracerEquation2DCG
+                          if o.tracer_element_family == "cg"
+                          else TracerEquation2D)
+            self.eq_tracer = tracer_cls(
+                self.mesh2d, self.asm, o, bathymetry=bathy,
+                labels=self.tracer_labels,
+                bnd_conditions=self.bnd_functions["tracer"],
+                depth=self.depth)
+            self.tracer_limiter = (
+                VertexBasedP1DGLimiter(self.function_spaces.Q_2d)
+                if o.use_limiter_for_tracers
+                and o.tracer_element_family != "cg" else None)
         self.sediment_model = None
         self._equations_created = True
 
@@ -286,7 +364,7 @@ class FlowSolver2d:
         sp = o.swe_timestepper_options
         kw = {}
         name = o.swe_timestepper_type
-        if name in ("CrankNicolson", "BackwardEuler"):
+        if name in ("CrankNicolson", "BackwardEuler", "DIRK22", "DIRK33"):
             kw["semi_implicit"] = bool(
                 getattr(sp, "use_semi_implicit_linearization", False))
             spp = getattr(sp, "solver_parameters", None)
@@ -295,14 +373,18 @@ class FlowSolver2d:
             choice = getattr(sp, "preconditioner", None)
             if kw["semi_implicit"] and self._assembled_eligible(choice):
                 # semi-implicit SWE systems are affine + 1-ring local:
-                # assemble the exact per-step Jacobian and run the whole
-                # KSP on it, two-level preconditioned (coarse built once
-                # at setup)
+                # assemble the exact per-step (stage) Jacobian and run the
+                # whole KSP on it, two-level preconditioned (coarse built
+                # once at setup)
                 kw["assembled_solve"] = True
-                coeff = (kw["theta"] * self.dt if name == "CrankNicolson"
-                         else self.dt)
+                if name == "CrankNicolson":
+                    coeff = kw["theta"] * self.dt
+                elif name == "BackwardEuler":
+                    coeff = self.dt
+                else:  # stiffly accurate DIRK: constant diagonal a_ii
+                    coeff = float(SCHEMES[name]().a[-1][-1]) * self.dt
                 kw["coarse"] = self._build_coarse(coeff)
-            else:
+            elif name in ("CrankNicolson", "BackwardEuler"):
                 kw["preconditioner"] = self._swe_preconditioner(
                     choice, theta=kw.get("theta", 1.0))
             if isinstance(spp, NewtonParameters):
@@ -318,7 +400,29 @@ class FlowSolver2d:
                     ksp_max_it=24, gmres_restart=8)
             else:
                 kw["solver_parameters"] = NewtonParameters()
+        spp = getattr(sp, "solver_parameters", None)
+        if name == "SteadyState" and isinstance(spp, NewtonParameters):
+            kw["solver_parameters"] = spp
+        if name == "PressureProjectionPicard":
+            kw["theta"] = float(getattr(sp, "implicitness_theta", 0.5))
+            kw["picard_iterations"] = int(getattr(sp, "picard_iterations",
+                                                  2))
+            if isinstance(spp, NewtonParameters):
+                kw["solver_parameters"] = spp
         self.timestepper = get_stepper(name, self.eq_sw, self.dt, o, **kw)
+        if self.solve_tracer:
+            tname = o.tracer_timestepper_type
+            tso = o.tracer_timestepper_options
+            tkw = {}
+            if tname in ("CrankNicolson", "BackwardEuler", "DIRK22",
+                         "DIRK33"):
+                tkw["semi_implicit"] = bool(getattr(
+                    tso, "use_semi_implicit_linearization", False))
+                if tname == "CrankNicolson":
+                    tkw["theta"] = float(getattr(tso, "implicitness_theta",
+                                                 0.5))
+            self.tracer_stepper = get_stepper(tname, self.eq_tracer,
+                                              self.dt, o, **tkw)
         self._build_advance()
         self._timestepper_created = True
 
@@ -398,22 +502,96 @@ class FlowSolver2d:
             o.lax_friedrichs_velocity_scaling_factor)
         return f
 
+    def _gather_tracer_fields(self, state):
+        """The tracer equation's fields (ref ``solver2d.py:715-738``);
+        callable (state-dependent reaction) sources are evaluated in the
+        advance, at the current Picard iterate."""
+        o = self.options
+        f = {
+            "uv_2d": state["uv"],
+            "elev_2d": state["elev"],
+            "lax_friedrichs_tracer_scaling_factor": self._value(
+                o.lax_friedrichs_tracer_scaling_factor),
+            "tracer_advective_velocity_factor": self._value(
+                o.tracer_advective_velocity_factor),
+        }
+        for label, topt in o.tracer.items():
+            if topt.diffusivity is not None:
+                f[f"diffusivity_h-{label}"] = self._value(topt.diffusivity)
+            elif o.horizontal_diffusivity is not None:
+                f[f"diffusivity_h-{label}"] = self._value(
+                    o.horizontal_diffusivity)
+            if topt.source is not None and not callable(topt.source):
+                f[f"source-{label}"] = self._value(topt.source)
+        return f
+
+    def _gather_tracer_extra(self, state):
+        """The tracer fields without the flow state (the advance adds
+        the new one)."""
+        if not self.solve_tracer:
+            return {}
+        f = self._gather_tracer_fields(state)
+        f.pop("uv_2d")
+        f.pop("elev_2d")
+        return f
+
     def _gather_bnd(self, which):
         return {int(marker): {k: self._value(v) for k, v in spec.items()}
                 for marker, spec in self.bnd_functions[which].items()}
 
     # ------------------------------------------------------------------
     def _build_advance(self):
-        """The coupled advance (SWE only in the port)."""
+        """The coupled advance (ref ``solver2d.py:746-907``,
+        ``coupled_timeintegrator_2d.py:93-135``): SWE, then the tracers
+        with their Picard sweeps, each sweep followed by the limiter."""
         swe_stepper = self.timestepper
+        solve_tracer = self.solve_tracer
+        tracer_stepper = getattr(self, "tracer_stepper", None)
+        limiter = getattr(self, "tracer_limiter", None)
+        labels = self.tracer_labels
+        tracer_only = self.options.tracer_only
+        tracer_picard = int(getattr(self.options, "tracer_picard_iterations",
+                                    1) or 1)
+        callable_sources = {l: topt.source
+                            for l, topt in self.options.tracer.items()
+                            if callable(topt.source)}
+        if (tracer_picard > 1 and solve_tracer
+                and not isinstance(tracer_stepper, CrankNicolson)):
+            raise NotImplementedError(
+                "tracer_picard_iterations > 1 requires a CrankNicolson"
+                "-family tracer timestepper (ref "
+                "coupled_timeintegrator_2d.py:115-135)")
 
         def advance(t, state, swe_fields, tracer_extra, bnd_sw, bnd_tr):
-            sw = swe_stepper.advance(
-                t, {"uv": state["uv"], "elev": state["elev"]},
-                swe_fields, swe_fields, bnd_sw)
+            sw = {"uv": state["uv"], "elev": state["elev"]}
+            if not tracer_only:
+                sw = swe_stepper.advance(t, sw, swe_fields, swe_fields,
+                                         bnd_sw)
             new_state = dict(state)
             new_state["uv"] = sw["uv"]
             new_state["elev"] = sw["elev"]
+            if solve_tracer:
+                tf = dict(tracer_extra)
+                tf["uv_2d"] = new_state["uv"]
+                tf["elev_2d"] = new_state["elev"]
+                tr0 = {l: state[l] for l in labels}
+                tr = tr0
+                # Picard sweeps re-linearize the semi-implicit solve at
+                # the previous iterate and re-evaluate state-dependent
+                # sources with it
+                for i in range(tracer_picard):
+                    tf_i = tf
+                    if callable_sources:
+                        tf_i = dict(tf)
+                        for l, fn in callable_sources.items():
+                            tf_i[f"source-{l}"] = fn(tr)
+                    tr = tracer_stepper.advance(
+                        t, tr0, tf_i, tf_i, bnd_tr,
+                        **({"linearization_state": tr} if i > 0 else {}))
+                    if limiter is not None:
+                        tr = {l: limiter.apply(cl) for l, cl in tr.items()}
+                for l in labels:
+                    new_state[l] = tr[l]
             return new_state
 
         def advance_n(state, t0, dt, n, swe_fields, tracer_extra, bnd_sw,
@@ -430,12 +608,16 @@ class FlowSolver2d:
         self._advance_n = advance_n
 
     def _get_state(self):
-        return {"uv": self.fields.uv_2d.data,
-                "elev": self.fields.elev_2d.data}
+        s = {"uv": self.fields.uv_2d.data, "elev": self.fields.elev_2d.data}
+        for l in self.tracer_labels:
+            s[l] = self.fields[l].data
+        return s
 
     def _set_state(self, s):
         self.fields.uv_2d.data = s["uv"]
         self.fields.elev_2d.data = s["elev"]
+        for l in self.tracer_labels:
+            self.fields[l].data = s[l]
 
     # ------------------------------------------------------------------
     def differentiable_forward(self, *args, **kwargs):
@@ -446,9 +628,8 @@ class FlowSolver2d:
 
     # ------------------------------------------------------------------
     def assign_initial_conditions(self, elev=None, uv=None, **tracers):
-        """ref ``solver2d.py:747-783``; tracer keywords have no field in
-        the port and are ignored, as the reference ignores unknown
-        labels."""
+        """ref ``solver2d.py:747-783``; ``tracer=`` is the reference's
+        alias of ``tracer_2d``, other unknown labels are ignored."""
         if not self._initialized:
             self.initialize()
         if elev is not None:
@@ -457,6 +638,12 @@ class FlowSolver2d:
         if uv is not None:
             self.fields.uv_2d.data = self._interp_to(
                 self.function_spaces.U_2d, uv)
+        for label, value in tracers.items():
+            if label == "tracer" and "tracer_2d" in self.tracer_labels:
+                label = "tracer_2d"
+            if label in self.tracer_labels:
+                self.fields[label].data = self._interp_to(
+                    self.function_spaces.Q_2d, value)
 
     def _interp_to(self, space, value):
         shape = space.dof_shape()
@@ -488,6 +675,13 @@ class FlowSolver2d:
         return (float(self.asm.integrate(eta))
                 + float(self.asm.integrate_cellq(self.eq_sw.bathy_q)))
 
+    def compute_tracer_mass(self, label):
+        """Depth-integrated tracer mass (ref ``solver2d.py:1116-1120``)."""
+        eta_q = self.asm.cell_values(self.fields.elev_2d.data)
+        H_q = self.depth.total_depth(self.eq_sw.bathy_q, eta_q)
+        c_q = self.asm.cell_values(self.fields[label].data)
+        return float(self.asm.integrate_cellq(H_q * c_q))
+
     def create_iterator(self, update_forcings=None, export_func=None):
         """Generator stepping the model one time step per ``next()``,
         yielding the simulation time after each step and handling exports
@@ -509,9 +703,11 @@ class FlowSolver2d:
             if update_forcings is not None:
                 update_forcings(self.simulation_time + self.dt)
             swe_fields = self._gather_swe_fields()
+            tracer_extra = self._gather_tracer_extra(state)
             bnd_sw = self._gather_bnd("shallow_water")
+            bnd_tr = self._gather_bnd("tracer")
             state = self._advance(self.simulation_time, state, swe_fields,
-                                  {}, bnd_sw, {})
+                                  tracer_extra, bnd_sw, bnd_tr)
             self.iteration += 1
             self.simulation_time += self.dt
             self._set_state(state)
@@ -584,6 +780,13 @@ class FlowSolver2d:
         # auto-attach the conservation callback (ref L1040-1085)
         if o.check_volume_conservation_2d:
             self.add_callback(VolumeConservation2DCallback(self))
+        if o.check_tracer_conservation:
+            for label in self.tracer_labels:
+                self.add_callback(TracerMassConservation2DCallback(label,
+                                                                   self))
+        if o.check_tracer_overshoot:
+            for label in self.tracer_labels:
+                self.add_callback(TracerOvershootCallBack(label, self))
 
         t_epsilon = 1e-5
         self.next_export_t = self.simulation_time + o.simulation_export_time
@@ -601,7 +804,9 @@ class FlowSolver2d:
 
         while self.simulation_time <= o.simulation_end_time - t_epsilon:
             swe_fields = self._gather_swe_fields()
+            tracer_extra = self._gather_tracer_extra(state)
             bnd_sw = self._gather_bnd("shallow_water")
+            bnd_tr = self._gather_bnd("tracer")
             if use_scan:
                 # the reference scans to the next export; a Python loop
                 t_target = min(self.next_export_t, o.simulation_end_time)
@@ -609,8 +814,8 @@ class FlowSolver2d:
                                      / self.dt)))
                 with timed_stage("coupled_advance"):
                     state = self._advance_n(state, self.simulation_time,
-                                            self.dt, n, swe_fields, {},
-                                            bnd_sw, {})
+                                            self.dt, n, swe_fields,
+                                            tracer_extra, bnd_sw, bnd_tr)
                 self.iteration += n
                 self.simulation_time += n * self.dt
             else:
@@ -618,9 +823,11 @@ class FlowSolver2d:
                     update_forcings(self.simulation_time + self.dt)
                     swe_fields = self._gather_swe_fields()
                     bnd_sw = self._gather_bnd("shallow_water")
+                    bnd_tr = self._gather_bnd("tracer")
                 with timed_stage("coupled_advance"):
                     state = self._advance(self.simulation_time, state,
-                                          swe_fields, {}, bnd_sw, {})
+                                          swe_fields, tracer_extra, bnd_sw,
+                                          bnd_tr)
                 self.iteration += 1
                 self.simulation_time += self.dt
                 self._set_state(state)

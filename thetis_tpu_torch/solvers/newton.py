@@ -1,9 +1,17 @@
 """Matrix-free Newton-Krylov solver and the FGMRES core (port of
 ``thetis_tpu/solvers/newton.py``).
 
-Jacobian-vector products come from ``torch.func.jvp`` of the residual
-(one forward-mode pass per matvec; the reference linearizes once with
-``jax.linearize``) and linear solves from the restarted FGMRES below.
+Jacobian-vector products come from a linearization built once per
+Newton iteration, as the reference's ``jax.linearize``: reverse mode
+over reverse mode (the graph of ``J^T w`` for a dummy ``w``; each matvec
+is one backward pass of it, ``J v = d(J^T w)/dw . v``).  A forward-mode
+``torch.func.jvp`` per matvec gives the same products but costs ~4x
+more host time: under forward AD every product of a dual tensor with a
+plain one goes through a Python reference decomposition (~0.4 ms a
+product on the CPU build of torch 2.13).  The dense path
+(``NewtonParameters(dense=True)``) builds the Jacobian with
+``torch.func.vmap`` of ``torch.func.jvp``.  Linear solves come from the
+restarted FGMRES below.
 The reference's ``lax.while_loop``s are host loops here: each Newton
 iteration and each restart cycle costs one host sync (the residual norm
 and the small least-squares problem are read on the host).  The Arnoldi
@@ -201,7 +209,9 @@ def _linsolve(matvec, b, precond, params, stats=None):
     if getattr(params, "dense", False):
         n = b_flat.shape[0]
         eye = torch.eye(n, dtype=b_flat.dtype, device=b_flat.device)
-        A = torch.func.vmap(mv, in_dims=1, out_dims=1)(eye)
+        fwd = getattr(matvec, "dense_jvp", matvec)
+        A = torch.func.vmap(lambda v: _ravel(fwd(unravel(v)))[0],
+                            in_dims=1, out_dims=1)(eye)
         return unravel(torch.linalg.solve(A, b_flat))
 
     if precond is not None:
@@ -232,11 +242,40 @@ def _linsolve(matvec, b, precond, params, stats=None):
 
 
 def _tangent_map(f, x):
-    """The Jacobian of ``f`` at ``x`` as a linear map: one
-    ``torch.func.jvp`` per application."""
+    """The Jacobian of ``f`` at ``x`` as a linear map (keys in ``x``'s
+    order), linearized once: the graph of ``g(w) = J^T w`` is built here
+    and each application is one backward pass of it, ``J v = d(w . J v)/dw
+    = grad(g, w, v)``.  ``jvp_fn.dense_jvp`` is the forward-mode product
+    of the same map, for ``torch.func.vmap``."""
+    keys = list(x)
+    with torch.enable_grad():
+        xs = {k: x[k].detach().requires_grad_(True) for k in keys}
+        out = f(xs)
+        out_keys = list(out)
+        ws = [torch.zeros_like(out[k], requires_grad=True) for k in out_keys]
+        g = torch.autograd.grad([out[k] for k in out_keys],
+                                [xs[k] for k in keys], ws,
+                                create_graph=True, allow_unused=True)
+    # inputs the residual does not read, or reads only linearly with a
+    # constant Jacobian block, leave no graph to differentiate
+    live = [i for i, gi in enumerate(g)
+            if gi is not None and gi.requires_grad]
+
     def jvp_fn(v):
+        if not live:
+            return {k: torch.zeros_like(out[k]) for k in out_keys}
+        jv = torch.autograd.grad([g[i] for i in live], ws,
+                                 [v[keys[i]] for i in live],
+                                 retain_graph=True, allow_unused=True)
+        return {k: (t.detach() if t is not None
+                    else torch.zeros_like(out[k]))
+                for k, t in zip(out_keys, jv)}
+
+    def dense_jvp(v):
         v = {k: v[k] for k in x}  # tangents in the primal's key order
         return torch.func.jvp(f, (x,), (v,))[1]
+
+    jvp_fn.dense_jvp = dense_jvp
     return jvp_fn
 
 

@@ -1,10 +1,10 @@
 """Runge-Kutta schemes from Butcher tableaux.
 
 Mirrors the reference's tableau registry (``thetis/rungekutta.py:142-408``)
-including each scheme's CFL coefficient; the generic explicit stepper
-that advances equation objects with these tableaux is
-``steppers.py::ERKGeneric`` (the DIRK steppers are not ported yet,
-ROADMAP A8).
+including each scheme's CFL coefficient; the steppers that advance
+equation objects with these tableaux are ``steppers.py::ERKGeneric``,
+``DIRKGeneric`` and ``DIRKUForm`` and the IMEX pairs of
+``implicitexplicit.py``.
 
 The code below this docstring is copied unchanged from
 ``thetis_tpu/timeintegration/rungekutta.py`` (numpy only).
