@@ -42,7 +42,12 @@ PyTorch version:
   a source, the monitors) at 320x160 (1,536,000 DOF); the Thacker bowl
   at the same width and the reference test's own case; DIRK33 and
   PressureProjectionPicard at 320x160, PPP on the standing wave,
-  SteadyState and SSPIMEX at the CPU tests' sizes.
+  SteadyState and SSPIMEX at the CPU tests' sizes;
+* morphodynamics, tidal turbines and the non-hydrostatic pressure: the
+  sediment-trench, tidal-array and solitary-wave examples at their own
+  sizes, each written for the port, and each at the bench's width
+  (~10^5 cells), where the SWE's CN runs the ring matvec and block-Jacobi
+  kernels every step.
 
 Phases, each printing its lines:
 
@@ -132,8 +137,34 @@ Phases, each printing its lines:
     in a process of its own (``python3 chip_smoke.py thacker <stepper>``,
     ``python3 chip_smoke.py standing_wave``), all four at once; meanwhile
     phases 7 and 11 (one 80x40 step of the slice, DIRK33, PPP and the
-    bowl under CN among them) and SteadyState (8x4) and SSPIMEX (5x4),
-    each GPU against CPU.
+    bowl under CN among them; one step of the sediment channel with
+    Exner, the tidal array and the solitary wave) and SteadyState (8x4)
+    and SSPIMEX (5x4), each GPU against CPU; a fifth process takes the
+    profiler's device kernels of one step of 22b, 23b and 24b (``python3
+    chip_smoke.py profile_slice9``);
+22. morphodynamics: (a) examples/sediment_trench_2d at its size (80x5,
+    f32, dt 0.3 s, morfac 100, CN theta 1, suspended sediment + bedload +
+    Exner, ``equilibrium`` inflow, from the example's 0.51 m/s), 1 + 20
+    steps: ms/step, the largest bed change within the example's bounds;
+    (b) tests/test_sediment.py's channel scaled by 20 onto 320x160
+    (1,280,481 DOF: SWE, sediment, bed), f32, 1 + 5 steps: ms/step,
+    DOF*steps/s, ring_mv / block_diag_mv launches a step (each > 0), the
+    solves' counters, the sediment minimum and the bed change;
+23. tidal turbines, in a process of its own (``python3 chip_smoke.py
+    tidal_array``: the example sets rho0 = 1026): (a) examples/
+    discrete_turbines/tidal_array.py at its size (100x30, f64, nine
+    turbines, 20 steps of 50 s through ``iterate(update_forcings=...)``
+    with the power callback) against its checks (power in 1e5 .. 1e8 W,
+    the wake slower than the free stream); (b) the array on 400x120
+    (96,000 cells, f32) from 2.5 m/s, 1 + 5 steps at dt 2.5 s (the
+    coarse-correction band): ms/step, launches (each > 0), 9 turbines to
+    1e-5, finite power;
+24. the non-hydrostatic pressure: (a) examples/nonhydrostatic_cases/
+    solitary_wave_nh at its size (250x1, f64, 200 steps) against its
+    checks (crest within 30 m of x0 + c t, amplitude above 0.7 a); (b)
+    the wave on 640x80 (102,400 cells, P2 q), f32, the Newton CN under
+    the assembled wave PC, 1 + 5 steps: ms/step, launches (each > 0),
+    BiCGStab iterations a step.
 
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
@@ -159,7 +190,8 @@ from thetis_tpu_torch.config import physical_constants
 from thetis_tpu_torch.equations.shallowwater_2d import (
     ShallowWaterEquations, swe_state)
 from thetis_tpu_torch.fem.assembly import DGAssembler
-from thetis_tpu_torch.fem.functionspace import Function, FunctionSpace
+from thetis_tpu_torch.fem.functionspace import (Function, FunctionSpace,
+                                                SpatialCoordinate)
 from thetis_tpu_torch.interop import state3d_keys
 from thetis_tpu_torch.kernels import ringmv, tridiag
 from thetis_tpu_torch.equations.momentum_3d import vertical_viscosity_implicit
@@ -173,6 +205,7 @@ from thetis_tpu_torch.model.flowsolver3d import FlowSolver
 from thetis_tpu_torch.solvers.assembled import get_coloring, ring_tables
 from thetis_tpu_torch.solvers.newton import NewtonParameters
 from thetis_tpu_torch.timeintegration.steppers import get_stepper
+from thetis_tpu_torch.utils.constant import Constant
 from thetis_tpu_torch.utils.coordsys import beta_plane_coriolis_params
 
 NX, NY, LX, LY = 320, 160, 100e3, 50e3  # bench.py:213-214, :51
@@ -2461,16 +2494,19 @@ def phase_cases():
     Thacker case (``tests/test_thacker.py``: CN, DIRK22, BackwardEuler)
     and PPP on the standing wave (``tests/test_standing_wave.py``, 20
     steps), each launch-bound and in a process of its own, all four at
-    once; meanwhile, in this process on 4 CPU threads, the GPU-against-CPU
+    once, with the profile of phases 22-24 (``profile_slice9``) as a
+    fifth; meanwhile, in this process on 4 CPU threads, the GPU-against-CPU
     parity of phase 7 (3D), phase 11 (2D, this slice's configurations
     with it), SteadyState and SSPIMEX."""
     procs = start_cases([["thacker", k] for k in THACKER_BOUNDS]
-                        + [["standing_wave"]])
+                        + [["standing_wave"], ["tidal_array"],
+                           ["solitary_wave"], ["profile_slice9"]])
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 4))
     try:
         for phase in (phase_parity3d, phase_model_parity,
-                      phase_model_parity_slice, phase_small_steppers):
+                      phase_model_parity_slice, phase_model_parity_slice9,
+                      phase_small_steppers):
             t0 = time.perf_counter()
             phase()
             log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -2541,6 +2577,572 @@ def phase_model_parity_slice():
         log(f"[parity model2d {name}] f64 {NX_PARITY}x{NY_PARITY} one step, "
             f"GPU {secs['cuda']:.2f} s vs CPU {secs['cpu']:.2f} s: "
             f"max|diff|/max {errs} <= {PARITY_RTOL:g}: ok")
+
+
+# -- the morphodynamics, turbine and NH slice (phases 22-24) ---------------
+#: f32 Krylov budget of the SWE solves (the policy's restart and cap at an
+#: rtol f32 reaches)
+F32_PARAMS = dict(ksp_rtol=1e-5, ksp_max_it=96, gmres_restart=24)
+#: the Newton CN in f32 (phase 10's cn_newton): snes_rtol 1e-4, the
+#: residual's f32 floor
+F32_NEWTON = dict(snes_rtol=1e-4, ksp_rtol=1e-5, ksp_max_it=24,
+                  gmres_restart=8)
+#: the f64 parity steps of the slice: a Krylov budget that solves the SWE
+#: step to roundoff
+PARITY9_PARAMS = dict(ksp_rtol=1e-12, ksp_max_it=400, gmres_restart=50)
+TRENCH_STEPS = 20
+SLICE9_STEPS = 5
+SOLITARY_STEPS = 200
+#: the AR2000 curves of examples/discrete_turbines/tidal_array.py
+AR2000_SPEEDS = [0., 0.75, 0.85, 0.95, 1., 3.05, 3.3, 3.55, 3.8, 4.05, 4.3,
+                 4.55, 4.8, 5., 5.001, 5.05, 5.25, 5.5, 5.75, 6.0, 6.25,
+                 6.5, 6.75, 7.0]
+AR2000_POWERS = [0.0105, 0.032, 0.0385, 0.116, 0.437, 0.437, 0.345, 0.277,
+                 0.226, 0.187, 0.156, 0.132, 0.112, 0.0993, 0.0595, 0.0051,
+                 0.00151, 0.000889, 0.000652, 0.000523, 0.000441, 0.000384,
+                 0.000341, 0.000308]
+AR2000_THRUSTS = [0.010531, 0.032281, 0.038951, 0.119951, 0.516484,
+                  0.516484, 0.387856, 0.302601, 0.242037, 0.197252,
+                  0.16319, 0.136716, 0.115775, 0.102048, 0.060513, 0.005112,
+                  0.00151, 0.00089, 0.000653, 0.000524, 0.000442, 0.000384,
+                  0.000341, 0.000308]
+
+
+def trench_profile(x):
+    """The trench of examples/sediment_trench_2d/trench_example.py: river
+    bed at 0, trench 0.15 m deep between x = 6.5 and 9.5 m, 1.5 m
+    slopes (numpy, positive up)."""
+    riv, trench = 0.0, -0.15
+    diff = trench - riv
+    return np.where(
+        x <= 5, riv, np.where(
+            x <= 6.5, (1 / 1.5) * diff * (x - 6.5) + trench, np.where(
+                x <= 9.5, trench, np.where(
+                    x <= 11, -(1 / 1.5) * diff * (x - 11) + riv, riv))))
+
+
+def trench_solver(device, dtype):
+    """The morphodynamic phase of examples/sediment_trench_2d/
+    trench_example.py written for the port (imports changed, no exports):
+    suspended sediment, bedload and Exner (morfac 100) under CN theta 1,
+    dt 0.3 s, an ``equilibrium`` sediment inflow, from the example's
+    uniform 0.51 m/s; f32 runs take an f32 Krylov budget."""
+    mesh2d = RectangleMesh(80, 5, 16.0, 1.1, device=device, dtype=dtype)
+    bathymetry_2d = Function(FunctionSpace(mesh2d, "CG", 1),
+                             name="bathymetry_2d")
+    bathymetry_2d.data = bathymetry_2d.data + torch.as_tensor(
+        -trench_profile(mesh2d.coords_np[:, 0]), dtype=dtype, device=device)
+    average_size = 160e-6
+    s = FlowSolver2d(mesh2d, bathymetry_2d)
+    options = s.options
+    so = options.sediment_model_options
+    so.solve_suspended_sediment = True
+    so.use_bedload = True
+    so.use_exner = True
+    so.use_sediment_conservative_form = False
+    so.average_sediment_size = average_size
+    so.bed_reference_height = 0.025
+    so.morphological_acceleration_factor = 100
+    so.horizontal_diffusivity = Constant(0.15)
+    options.no_exports = True
+    options.nikuradse_bed_roughness = Constant(3 * average_size)
+    options.horizontal_viscosity = Constant(1e-6)
+    options.swe_timestepper_type = "CrankNicolson"
+    options.swe_timestepper_options.implicitness_theta = 1.0
+    options.norm_smoother = Constant(0.1)
+    options.timestep = 0.3
+    if dtype == torch.float32:
+        options.swe_timestepper_options.solver_parameters = \
+            NewtonParameters(**F32_PARAMS)
+    s.bnd_functions["shallow_water"] = {1: {"flux": Constant(-0.22)},
+                                        2: {"elev": Constant(0.397)}}
+    s.bnd_functions["sediment"] = {
+        1: {"flux": Constant(-0.22), "equilibrium": None},
+        2: {"elev": Constant(0.397)}}
+    s.assign_initial_conditions(
+        uv=torch.tensor([0.51, 0.0], dtype=dtype, device=device),
+        elev=Constant(0.397))
+    return s
+
+
+def channel_solver(device, dtype, nx=320, ny=160, scale=20.0, inflow=0.25,
+                   params=None):
+    """tests/test_sediment.py::sediment_channel with every length scaled
+    by ``scale`` (20: 3200 x 800 m on 320x160, a 0.8 m bump over 4 m of
+    depth with a 400 m half-width), its inflow flux kept at ``inflow``
+    m/s over the 4 m depth, suspended sediment with an ``equilibrium``
+    inflow, bedload and Exner (morfac 10), dt 2 s."""
+    lx, ly = 160.0 * scale, 40.0 * scale
+    mesh2d = RectangleMesh(nx, ny, lx, ly, device=device, dtype=dtype)
+    P1 = FunctionSpace(mesh2d, "CG", 1)
+    x, _ = SpatialCoordinate(mesh2d)
+    bath = Function(P1).interpolate(
+        4.0 - 0.8 * torch.exp(-(((x - lx / 2) / (20.0 * scale)) ** 2)))
+    s = FlowSolver2d(mesh2d, bath)
+    o = s.options
+    o.timestep = 2.0
+    o.no_exports = True
+    o.swe_timestepper_type = "CrankNicolson"
+    o.horizontal_viscosity = Constant(0.1)
+    o.horizontal_diffusivity = Constant(0.15)
+    o.norm_smoother = 0.1
+    if params is not None:
+        o.swe_timestepper_options.solver_parameters = NewtonParameters(
+            **params)
+    sed = o.sediment_model_options
+    sed.solve_suspended_sediment = True
+    sed.use_bedload = True
+    sed.use_exner = True
+    sed.use_angle_correction = False
+    sed.use_secondary_current = False
+    sed.average_sediment_size = 1.6e-4
+    sed.morphological_viscosity = 1e-6
+    sed.bed_reference_height = 0.025
+    sed.morphological_acceleration_factor = 10.0
+    flux = -inflow * 4.0 * ly
+    s.bnd_functions["shallow_water"] = {1: {"flux": Constant(flux)},
+                                        2: {"elev": Constant(0.0)}}
+    s.bnd_functions["sediment"] = {
+        1: {"flux": Constant(flux), "equilibrium": None},
+        2: {"elev": Constant(0.0)}}
+    s.assign_initial_conditions(
+        uv=torch.tensor([inflow, 0.0], dtype=dtype, device=device), elev=0.0)
+    return s
+
+
+def tidal_array_solver(device, dtype, nx=100, ny=30, params=None, dt=50.0,
+                       spun_up=False):
+    """examples/discrete_turbines/tidal_array.py written for the port:
+    the 2000 x 600 m channel, 50 m deep, an inflow viscosity sponge, nine
+    discrete turbines in two farms (AR2000: table thrust, support drag,
+    shear profile, upwind correction; AR1500: constant thrust, shear
+    profile), CN dt 50 s, the inflow ramped to 2.5 m/s over 500 s by
+    ``update_forcings`` and the power callback each step.  ``spun_up``
+    starts at the ramp's end from a uniform 2.5 m/s.  Returns ``(solver,
+    callback, update_forcings)``; the caller sets rho0."""
+    from thetis_tpu_torch.model.turbines import (
+        DiscreteTidalTurbineFarmOptions, TurbineFunctionalCallback)
+
+    mesh2d = RectangleMesh(nx, ny, 2000.0, 600.0, device=device, dtype=dtype)
+    P1_2d = FunctionSpace(mesh2d, "CG", 1)
+    bathymetry_2d = Function(P1_2d, name="Bathymetry").assign(50.0)
+    h_viscosity = Function(P1_2d).interpolate(
+        lambda x, y: torch.where(x <= 50.0, 51.0 - x, 1.0))
+    farm_AR2000 = DiscreteTidalTurbineFarmOptions()
+    farm_AR2000.turbine_type = "table"
+    to = farm_AR2000.turbine_options
+    to.thrust_speeds = AR2000_SPEEDS
+    to.thrust_coefficients = AR2000_THRUSTS
+    to.power_coefficients = AR2000_POWERS
+    to.C_support = 0.7
+    to.A_support = 2.6 * 14.0
+    to.diameter = 20
+    to.apply_shear_profile = True
+    to.structure_type = "bottom-fixed"
+    to.rel_hub_height = 14.0
+    farm_AR2000.upwind_correction = True
+    farm_AR2000.turbine_coordinates = [
+        [x, y] for x in np.arange(1000, 1061, 60)
+        for y in np.arange(260, 341, 40)]
+    farm_AR1500 = DiscreteTidalTurbineFarmOptions()
+    farm_AR1500.turbine_type = "constant"
+    to = farm_AR1500.turbine_options
+    to.diameter = 18
+    to.thrust_coefficient = 0.6
+    to.power_coefficient = 0.55
+    to.apply_shear_profile = True
+    to.rel_hub_height = 13.5
+    farm_AR1500.turbine_coordinates = [
+        [940.0, y] for y in np.arange(260, 341, 40)]
+    s = FlowSolver2d(mesh2d, bathymetry_2d)
+    options = s.options
+    options.simulation_export_time = 200.0
+    options.simulation_end_time = 5 * 200.0
+    options.no_exports = True
+    options.check_volume_conservation_2d = True
+    options.quadratic_drag_coefficient = Constant(0.0025)
+    options.swe_timestepper_type = "CrankNicolson"
+    options.swe_timestepper_options.implicitness_theta = 0.5
+    if params is not None:
+        options.swe_timestepper_options.solver_parameters = \
+            NewtonParameters(**params)
+    options.horizontal_viscosity = h_viscosity
+    options.timestep = dt
+    options.discrete_tidal_turbine_farms["everywhere"] = [farm_AR1500,
+                                                          farm_AR2000]
+    t0 = 500.0 if spun_up else 0.0
+    inflow_vel = Constant(-2.5 * t0 / 500.0)
+    s.bnd_functions["shallow_water"] = {1: {"un": inflow_vel},
+                                        2: {"elev": Constant(0.0)}}
+
+    def update_forcings(t_new):
+        inflow_vel.assign(-2.5 * min((t_new + t0) / 500.0, 1.0))
+
+    s.assign_initial_conditions(uv=torch.tensor(
+        [2.5 if spun_up else 0.0, 0.0], dtype=dtype, device=device))
+    cb = TurbineFunctionalCallback(s)
+    s.add_callback(cb, "timestep")
+    return s, cb, update_forcings
+
+
+def solitary_solver(device, dtype, nx=250, ny=1, ly=2.0, q_rtol=None,
+                    newton=False):
+    """examples/nonhydrostatic_cases/solitary_wave_nh/solitary_wave_2d.py
+    written for the port: a Boussinesq solitary wave (a/H 0.2 over 10 m)
+    from x0 = 250 m in a 1000 m channel, CN dt 0.1 s with the NH
+    pressure (``newton``: the Newton CN of tests/test_nh.py's standing
+    wave, under the assembled wave preconditioner).  Returns ``(solver,
+    c_sol, a, x0)``."""
+    depth = 10.0
+    mesh2d = RectangleMesh(nx, ny, 1000.0, ly, device=device, dtype=dtype)
+    s = FlowSolver2d(mesh2d, Function(FunctionSpace(mesh2d, "CG", 1),
+                                      name="Bathymetry").assign(depth))
+    options = s.options
+    options.swe_timestepper_type = "CrankNicolson"
+    options.timestep = 0.1
+    options.simulation_export_time = 5.0
+    options.simulation_end_time = 20.0
+    options.no_exports = True
+    options.nh_model_options.solve_nonhydrostatic_pressure = True
+    if q_rtol is not None:
+        options.nh_model_options.q_solver_rtol = q_rtol
+    if newton:
+        options.swe_timestepper_options.use_semi_implicit_linearization = \
+            False
+    if dtype == torch.float32:
+        options.swe_timestepper_options.solver_parameters = \
+            NewtonParameters(**(F32_NEWTON if newton else F32_PARAMS))
+    s.create_equations()
+    g = float(physical_constants["g_grav"])
+    a = 0.2 * depth
+    c_sol = math.sqrt(g * (depth + a))
+    x0 = 250.0
+    x_dof = s.function_spaces.H_2d.dof_coords()[..., 0]
+    kx = math.sqrt(3 * a / (4 * depth**3))
+    eta0 = a / torch.cosh(kx * (x_dof - x0)) ** 2
+    u0 = c_sol * eta0 / (depth + eta0)
+    s.assign_initial_conditions(
+        elev=eta0, uv=torch.stack([u0, torch.zeros_like(u0)], dim=-1))
+    return s, c_sol, a, x0
+
+
+def solver_stats(s):
+    """The last step's solver counters of each stepper of ``s``."""
+    out = {"swe": dict(s.timestepper.stats)}
+    for k in ("sediment_stepper", "exner_stepper", "fs_stepper"):
+        st = getattr(s, k, None)
+        if st is not None:
+            out[k.split("_")[0]] = dict(st.stats)
+    if s.solve_nh:
+        out["bicgstab"] = s.poisson_solver.iterations
+    return out
+
+
+def timed_steps(s, n, update_forcings=None):
+    """``n`` steps through ``iterate()`` one at a time (the per-step
+    counters kept); returns (seconds, [solver_stats after each step])."""
+    per = []
+
+    def run():
+        for _ in range(n):
+            o = s.options
+            o.simulation_export_time = s.dt
+            o.simulation_end_time = s.simulation_time + s.dt
+            s.iterate(update_forcings=update_forcings)
+            per.append(solver_stats(s))
+
+    _, t = sync_time(run)
+    return t, per
+
+
+def require_hand_kernels(tag, n, steps):
+    if n["ring_mv"] < steps or n["block_diag_mv"] < steps:
+        raise AssertionError(f"{tag}: ring_mv / block_diag_mv must launch "
+                             f"at least once a step: {n} in {steps} steps")
+
+
+def phase_morphodynamics(smi):
+    """Phase 22: (a) the trench example at its own size, f32, 1 + 20
+    steps; (b) the sediment channel at the bench's width (320x160,
+    1,280,481 DOF), f32, 1 + 5 steps."""
+    dev = torch.device("cuda")
+    s, t_setup = sync_time(lambda: trench_solver(dev, torch.float32))
+    zb0 = s.fields.bathymetry_2d.data.clone()
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    t, per = timed_steps(s, TRENCH_STEPS)
+    check_finite("trench", s._get_state())
+    dz = float((s.fields.bathymetry_2d.data - zb0).abs().max())
+    if not 1e-5 < dz < 0.15:
+        raise AssertionError(f"trench: the bed changed by {dz} (the "
+                             "example's bounds: 1e-5 .. 0.15 m)")
+    log(f"[morpho trench] examples/sediment_trench_2d at its size, f32 "
+        f"80x5, dt 0.3 s, morfac 100, CN theta 1 (coarse PC "
+        f"{type(s.timestepper.coarse).__name__}): setup {t_setup:.2f} s, "
+        f"warm-up {t_warm * 1e3:.1f} ms; "
+        f"{TRENCH_STEPS} steps {t / TRENCH_STEPS * 1e3:.2f} ms/step; largest "
+        f"bed change {dz:.4e} m (bounds 1e-5 .. 0.15); sediment "
+        f"{float(s.fields.sediment_2d.data.min()):.3e} .. "
+        f"{float(s.fields.sediment_2d.data.max()):.3e}; last step {per[-1]}; "
+        f"card: {smi}")
+
+    s, t_setup = sync_time(lambda: channel_solver(dev, torch.float32,
+                                                  params=F32_PARAMS))
+    mesh = s.mesh2d
+    n_dofs = 9 * mesh.nc + 3 * mesh.nc + mesh.nv
+    zb0 = s.fields.bathymetry_2d.data.clone()
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    reset_counts()
+    t, per = timed_steps(s, SLICE9_STEPS)
+    n = counts()
+    check_state("morpho channel", s, shapes)
+    require_hand_kernels("morpho channel", n, SLICE9_STEPS)
+    dz = float((s.fields.bathymetry_2d.data - zb0).abs().max())
+    swe = [p["swe"] for p in per]
+    log(f"[morpho channel] test_sediment.py's channel x20 on 320x160, f32, "
+        f"{mesh.nc} cells, {n_dofs} DOF (SWE {9 * mesh.nc} + sediment "
+        f"{3 * mesh.nc} + bed {mesh.nv}), dt 2 s, morfac 10, SWE CN "
+        f"semi-implicit assembled (coarse PC "
+        f"{type(s.timestepper.coarse).__name__}, wave CFL "
+        f"{s._wave_cfl(0.5 * s.dt):.2f}): setup {t_setup:.2f} s, warm-up "
+        f"{t_warm * 1e3:.1f} ms; {SLICE9_STEPS} steps "
+        f"{t / SLICE9_STEPS * 1e3:.2f} ms/step, "
+        f"{n_dofs * SLICE9_STEPS / t:.4e} DOF*steps/s; launches {n} = per "
+        f"step { {k: v / SLICE9_STEPS for k, v in n.items()} }; SWE FGMRES "
+        f"cycles a step {[p['ksp_cycles'] for p in swe]}; sediment "
+        f"{per[-1]['sediment']}, Exner {per[-1]['exner']} (Newton "
+        f"iterations, FGMRES cycles of 16); sediment min "
+        f"{float(s.fields.sediment_2d.data.min()):.3e}, bed change "
+        f"{dz:.3e} m; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
+    return n
+
+
+def tidal_array_case():
+    """Phase 23a in a process of its own (``python3 chip_smoke.py
+    tidal_array``, started in phase 21's block; the example sets rho0 =
+    1026): the example at its size (100x30, f64, 20 steps of 50 s
+    through ``iterate(update_forcings=...)`` with the power callback)
+    against its checks."""
+    phase_device()
+    smi = card()
+    dev = torch.device("cuda")
+    physical_constants["rho0"] = 1026.0
+    (s, cb, update_forcings), t_setup = sync_time(
+        lambda: tidal_array_solver(dev, torch.float64))
+    _, t = sync_time(lambda: s.iterate(update_forcings=update_forcings))
+    uv = s.fields.uv_2d.data
+    check_finite("tidal array", s._get_state())
+    power = sum(cb.average_power)
+    x_dof = torch.as_tensor(s.mesh2d.coords_np[s.mesh2d.cells_np][..., 0],
+                            device=dev)
+    speed = torch.sqrt((uv**2).sum(-1))
+    wake = float(speed[(x_dof > 1100) & (x_dof < 1300)].mean())
+    free = float(speed[(x_dof > 400) & (x_dof < 800)].mean())
+    if s.iteration != 20 or not 1e5 < power < 1e8 or not wake < free:
+        raise AssertionError(f"tidal array: {s.iteration} steps, average "
+                             f"power {power} W, wake {wake} vs free {free}")
+    log(f"[turbines tidal array] examples/discrete_turbines/tidal_array.py "
+        f"at its size, f64 100x30, 9 turbines, CN dt 50 s ("
+        f"{type(s.timestepper.coarse).__name__} PC), 20 steps through "
+        f"iterate(update_forcings=...): setup {t_setup:.2f} s, "
+        f"{t / 20 * 1e3:.2f} ms/step; average power {power:.4e} W (bounds "
+        f"1e5 .. 1e8), turbines {sum(cb.cost):.6f}; wake {wake:.4f} m/s < "
+        f"free stream {free:.4f} m/s; card: {smi}")
+
+
+def phase_turbines(smi):
+    """Phase 23b: the tidal array at the bench's width (400x120, 96,000
+    cells, f32, rho0 1026 for the phase) from the ramp's end, 1 + 5 steps
+    at dt 2.5 s: the example's 50 s puts the wave CFL at 110 there, where
+    the semi-implicit CN takes the Schur fieldsplit (no block-Jacobi) and
+    stops short of ksp_rtol; at 2.5 s (CFL 5.5) it takes the coarse
+    correction.  (23a runs in phase 21's block.)"""
+    dev = torch.device("cuda")
+    rho0 = physical_constants["rho0"]
+    physical_constants["rho0"] = 1026.0
+    try:
+        (s, cb, update_forcings), t_setup = sync_time(
+            lambda: tidal_array_solver(dev, torch.float32, nx=400, ny=120,
+                                       params=F32_PARAMS, dt=2.5,
+                                       spun_up=True))
+        nc = s.mesh2d.nc
+        shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+        _, t_warm = sync_time(lambda: timed_steps(s, 1, update_forcings))
+        reset_counts()
+        t, per = timed_steps(s, SLICE9_STEPS, update_forcings)
+        n = counts()
+        check_state("tidal array 400x120", s, shapes)
+        require_hand_kernels("tidal array 400x120", n, SLICE9_STEPS)
+        turbines = sum(cb.cost)
+        power = cb.instantaneous_power
+        if abs(turbines - 9.0) > 1e-5 or not all(math.isfinite(p)
+                                                  for p in power):
+            raise AssertionError(f"tidal array 400x120: {turbines} "
+                                 f"turbines, power {power}")
+        swe = [p["swe"] for p in per]
+        log(f"[turbines bench width] the array on 400x120 (2000 x 600 m), "
+            f"f32, {nc} cells, {9 * nc} DOF, from 2.5 m/s, dt 2.5 s, "
+            f"semi-implicit CN ({type(s.timestepper.coarse).__name__} at "
+            f"wave CFL {s._wave_cfl(0.5 * s.dt):.1f}): setup {t_setup:.2f} "
+            f"s, warm-up {t_warm * 1e3:.1f} ms; {SLICE9_STEPS} steps "
+            f"{t / SLICE9_STEPS * 1e3:.2f} ms/step, "
+            f"{9 * nc * SLICE9_STEPS / t:.4e} DOF*steps/s; launches {n} = "
+            f"per step { {k: v / SLICE9_STEPS for k, v in n.items()} }; "
+            f"FGMRES cycles of 24 {[p.get('ksp_cycles') for p in swe]} a "
+            f"step, final residuals "
+            f"{[p.get('ksp_rel_residual') for p in swe]}; turbines "
+            f"{turbines:.6f}; power {power} W; card: {smi}")
+    finally:
+        physical_constants["rho0"] = rho0
+    return n
+
+
+def solitary_wave_case():
+    """Phase 24a in a process of its own (``python3 chip_smoke.py
+    solitary_wave``, started in phase 21's block): the solitary wave at
+    its size (250x1, f64, 200 steps) against its checks."""
+    phase_device()
+    smi = card()
+    dev = torch.device("cuda")
+    (s, c_sol, a, x0), t_setup = sync_time(
+        lambda: solitary_solver(dev, torch.float64))
+    _, t = sync_time(s.iterate)
+    eta = s.fields.elev_2d.data
+    check_finite("solitary wave", s._get_state())
+    x_dof = s.function_spaces.H_2d.dof_coords()[..., 0]
+    x_peak = float(x_dof.reshape(-1)[int(eta.argmax())])
+    x_expect = x0 + c_sol * s.simulation_time
+    if (s.iteration != SOLITARY_STEPS or not abs(x_peak - x_expect) < 30.0
+            or not float(eta.max()) > 0.7 * a):
+        raise AssertionError(f"solitary wave: {s.iteration} steps, crest at "
+                             f"{x_peak} (expected {x_expect}), amplitude "
+                             f"{float(eta.max())}")
+    log(f"[nh solitary wave] examples/nonhydrostatic_cases/solitary_wave_nh "
+        f"at its size, f64 250x1, dt 0.1 s, {SOLITARY_STEPS} steps: setup "
+        f"{t_setup:.2f} s, {t / SOLITARY_STEPS * 1e3:.2f} ms/step; crest at "
+        f"{x_peak:.2f} m vs x0 + c t = {x_expect:.2f} m (within 30), "
+        f"amplitude {float(eta.max()):.4f} m > 0.7 a = {0.7 * a:.2f}; last "
+        f"step {solver_stats(s)}; card: {smi}")
+
+
+def phase_nonhydrostatic(smi):
+    """Phase 24b: the solitary wave on 640x80 (102,400 cells), f32, the
+    Newton CN, 1 + 5 steps.  (24a runs in phase 21's block.)"""
+    dev = torch.device("cuda")
+    (s, _, _, _), t_setup = sync_time(
+        lambda: solitary_solver(dev, torch.float32, nx=640, ny=80, ly=125.0,
+                                q_rtol=1e-5, newton=True))
+    mesh = s.mesh2d
+    nq = s.poisson_solver.nq_nodes
+    n_dofs = 9 * mesh.nc + 3 * mesh.nc + nq
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    reset_counts()
+    t, per = timed_steps(s, SLICE9_STEPS)
+    n = counts()
+    check_state("nh 640x80", s, shapes)
+    require_hand_kernels("nh 640x80", n, SLICE9_STEPS)
+    log(f"[nh bench width] the wave on 640x80 (1000 x 125 m), f32, "
+        f"{mesh.nc} cells, {n_dofs} DOF (SWE {9 * mesh.nc} + w "
+        f"{3 * mesh.nc} + P2 q {nq}), dt 0.1 s, Newton CN under "
+        f"{type(s.timestepper.preconditioner).__name__}, q_solver_rtol "
+        f"1e-5: setup "
+        f"{t_setup:.2f} s, warm-up {t_warm * 1e3:.1f} ms; {SLICE9_STEPS} "
+        f"steps {t / SLICE9_STEPS * 1e3:.2f} ms/step, "
+        f"{n_dofs * SLICE9_STEPS / t:.4e} DOF*steps/s; launches {n} = per "
+        f"step { {k: v / SLICE9_STEPS for k, v in n.items()} }; BiCGStab "
+        f"iterations a step {[p['bicgstab'] for p in per]}; SWE Newton "
+        f"iterations {[p['swe'].get('newton_iterations') for p in per]}, "
+        f"FGMRES cycles of 8 {[p['swe']['ksp_cycles'] for p in per]}; card: "
+        f"{smi}")
+    return n
+
+
+def profile_slice9():
+    """The profiler's view of one step (the coupled advance) of each
+    full-width case of phases 22-24 after a warm-up step, from a fresh
+    process (``python3 chip_smoke.py profile_slice9``, kernels built
+    already; started in phase 21's block): device kernels, device ms and
+    the hand kernels' share."""
+    phase_device()
+    dev = torch.device("cuda")
+    physical_constants["rho0"] = 1026.0  # the tidal array's, this process
+    cases = {
+        "22b sediment channel": lambda: (channel_solver(
+            dev, torch.float32, params=F32_PARAMS), None),
+        "23b tidal array": lambda: (lambda r: (r[0], r[2]))(
+            tidal_array_solver(dev, torch.float32, nx=400, ny=120,
+                               params=F32_PARAMS, dt=2.5, spun_up=True)),
+        "24b solitary wave": lambda: (solitary_solver(
+            dev, torch.float32, nx=640, ny=80, ly=125.0, q_rtol=1e-5,
+            newton=True)[0], None),
+    }
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    for name, make in cases.items():
+        s, update_forcings = make()
+        timed_steps(s, 1, update_forcings)
+        if update_forcings is not None:
+            update_forcings(s.simulation_time + s.dt)
+        st = s._get_state()
+        args = (s.simulation_time, st, s._gather_swe_fields(),
+                s._add_sediment_diffusivity(s._gather_tracer_extra(st)),
+                s._gather_bnd("shallow_water"), s._gather_bnd("tracer"))
+        torch.cuda.synchronize()
+        rows = device_rows(lambda: s._advance(*args))
+        if not rows:
+            raise RuntimeError(f"the profiler saw no device kernel in {name}")
+        hand = {k: (sum(c for _, c, key in rows if f"{k}_kernel" in key),
+                    sum(us for us, _, key in rows if f"{k}_kernel" in key)
+                    / 1e3)
+                for k in ("ring_mv", "block_diag_mv")}
+        tag = "[slice9 profile]"
+        log(f"{tag} {name}, one step's coupled advance: "
+            f"{sum(r[1] for r in rows)} device kernels, device busy "
+            f"{sum(r[0] for r in rows) / 1e3:.3f} ms; hand kernels "
+            f"(launches, device ms) {hand}; top by device time:")
+        for us, cnt, key in rows[:5]:
+            log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
+
+
+def phase_model_parity_slice9():
+    """Phase 21's f64 GPU-against-CPU step of each configuration of phases
+    22-24 at a size the CPU affords: the sediment channel with Exner at
+    1 m/s (x1, 16x4), the tidal array's farms from 2.5 m/s (100x30, dt
+    10 s: the coarse correction) and the solitary wave (250x1,
+    q_solver_rtol 1e-12)."""
+    cases = {
+        "sediment exner": lambda d: channel_solver(
+            d, torch.float64, nx=16, ny=4, scale=1.0, inflow=1.0,
+            params=PARITY9_PARAMS),
+        "tidal array": lambda d: tidal_array_solver(
+            d, torch.float64, params=PARITY9_PARAMS, dt=10.0,
+            spun_up=True)[0],
+        "nh wave": lambda d: solitary_solver(d, torch.float64,
+                                             q_rtol=1e-12)[0],
+    }
+    for name, make in cases.items():
+        out, secs = {}, {}
+        for dv in ("cuda", "cpu"):
+            s = make(torch.device(dv))
+            start = {k: v.clone() for k, v in s._get_state().items()}
+            reset_counts()
+            t0 = time.perf_counter()
+            iterate_steps(s, 1)
+            if dv == "cuda":
+                torch.cuda.synchronize()
+                n = counts()
+            secs[dv] = time.perf_counter() - t0
+            out[dv] = s._get_state()
+        if n["ring_mv"] == 0:
+            raise AssertionError(f"parity {name}: GPU step launches {n}")
+        moved = {k: float((out["cpu"][k] - start[k]).abs().max())
+                 for k in out["cpu"]}
+        errs = compare(f"parity model2d {name}", out["cuda"], out["cpu"],
+                       PARITY_RTOL)
+        log(f"[parity model2d {name}] f64 one step, GPU {secs['cuda']:.2f} s "
+            f"vs CPU {secs['cpu']:.2f} s: max|diff|/max {errs} <= "
+            f"{PARITY_RTOL:g}: ok (the step moved {moved})")
 
 
 def main():
@@ -2614,6 +3216,14 @@ def main():
         out = phase(smi)
         new[key] = out[0] if isinstance(out, tuple) else out
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    # the morphodynamics, turbine and NH slice, each path's counts set to
+    # 0 just before its timed steps
+    for key, phase in (("morphodynamics", phase_morphodynamics),
+                       ("turbines", phase_turbines),
+                       ("nonhydrostatic", phase_nonhydrostatic)):
+        t0 = time.perf_counter()
+        new[key] = phase(smi)
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_cases()
     log(f"[phase_cases] {time.perf_counter() - t0:.1f} s")
@@ -2635,7 +3245,12 @@ def main():
                                     "slice2d_tracers":
                                         new["slice2d_tracers"][k],
                                     "wetting_drying": new["wetting_drying"][k],
-                                    "steppers2d": new["steppers2d"][k]},
+                                    "steppers2d": new["steppers2d"][k],
+                                    "morphodynamics":
+                                        new["morphodynamics"][k],
+                                    "turbines": new["turbines"][k],
+                                    "nonhydrostatic":
+                                        new["nonhydrostatic"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2669,5 +3284,11 @@ if __name__ == "__main__":
         thacker_case(sys.argv[2])
     elif sys.argv[1:] == ["standing_wave"]:
         standing_wave_case()
+    elif sys.argv[1:] == ["tidal_array"]:
+        tidal_array_case()
+    elif sys.argv[1:] == ["solitary_wave"]:
+        solitary_wave_case()
+    elif sys.argv[1:] == ["profile_slice9"]:
+        profile_slice9()
     else:
         main()

@@ -135,20 +135,15 @@ def test_cn_step_with_separate_old_fields():
 
 
 def test_unported_paths_raise():
-    """What the 2D slice still lacks: tidal turbines in the SWE (A8d),
-    the dg-cg family's CG P2 space (A8e), suspended sediment (A8c) and
-    the H(div) families (A8f) in the model."""
+    """What the 2D slice still lacks: the dg-cg family (A8e; its CG P2
+    space is ported) and the H(div) families (A8f) in the model."""
     from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 
     _, tst, _, _ = build("rect", "bench")
     eq = tst.equation
-    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
-        TSWE(eq.mesh, eq.asm, opts(), 50.0, tidal_farms=[object()])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8e"):
-        TFS(eq.mesh, "CG", 2)
+    assert TFS(eq.mesh, "CG", 2).node_count == eq.mesh.nv + eq.mesh.nf
     for item, setter in (
-            ("A8c", lambda o: setattr(o.sediment_model_options,
-                                      "solve_suspended_sediment", True)),
+            ("A8e", lambda o: setattr(o, "element_family", "dg-cg")),
             ("A8f", lambda o: setattr(o, "element_family", "rt-dg"))):
         s = FlowSolver2d(eq.mesh, 50.0)
         s.options.no_exports = True

@@ -315,26 +315,12 @@ def test_facade_square_mesh_goes_to_the_card(gen, monkeypatch):
 
 
 def _opts_refused():
-    def sediment(o):
-        o.sediment_model_options.solve_suspended_sediment = True
-
-    def exner(o):
-        o.sediment_model_options.use_exner = True
-
-    def nh(o):
-        o.nh_model_options.solve_nonhydrostatic_pressure = True
-
-    def turbines(o):
-        o.tidal_turbine_farms = {"everywhere": object()}
-
     def family(name):
         def f(o):
             o.element_family = name
         return f
 
-    return {"sediment": (sediment, "A8c"), "exner": (exner, "A8c"),
-            "nh": (nh, "A8d"), "turbines": (turbines, "A8d"),
-            "dg-cg": (family("dg-cg"), "A8e"),
+    return {"dg-cg": (family("dg-cg"), "A8e"),
             "rt-dg": (family("rt-dg"), "A8f"),
             "bdm-dg": (family("bdm-dg"), "A8f")}
 
@@ -343,8 +329,26 @@ REFUSED = _opts_refused()
 
 
 def _opts_ported():
-    """The options of the 2D slice that raised before it was ported, each
-    with what one step must show."""
+    """The options of the 2D slices that raised before they were ported,
+    each with what one step must show."""
+    def sediment(o):
+        o.sediment_model_options.solve_suspended_sediment = True
+
+    def exner(o):
+        so = o.sediment_model_options
+        so.use_exner = True
+        so.use_bedload = True
+        so.morphological_acceleration_factor = 10.0
+
+    def nh(o):
+        o.nh_model_options.solve_nonhydrostatic_pressure = True
+
+    def turbines(o):
+        from thetis_tpu_torch.model.turbines import TidalTurbineFarmOptions
+
+        o.tidal_turbine_farms = {"everywhere": [
+            TidalTurbineFarmOptions(turbine_density=1e-5)]}
+
     def tracer(o):
         o.add_tracer_2d("tracer_2d", source=1e-3)
 
@@ -367,7 +371,8 @@ def _opts_ported():
                     TNewtonParameters(**params)
         return f
 
-    return {"tracer": tracer, "tracer_cg": tracer_cg,
+    return {"sediment": sediment, "exner": exner, "nh": nh,
+            "turbines": turbines, "tracer": tracer, "tracer_cg": tracer_cg,
             "wetting_drying": wetting_drying,
             "wetting_drying_automatic": wetting_drying_automatic,
             "DIRK22": stepper("DIRK22"), "DIRK33": stepper("DIRK33"),
@@ -379,6 +384,13 @@ def _opts_ported():
 
 
 PORTED = _opts_ported()
+#: the state each ported option's step must move, and what it starts from
+#: besides the elevation hump (a deposit; a 1.5 m/s flow over the bed)
+MOVED = {"sediment": "sediment_2d", "exner": "bathymetry", "nh": "q",
+         "turbines": "uv", "tracer": "tracer_2d", "tracer_cg": "tracer_2d"}
+START = {"sediment": dict(sediment=1e-3), "exner": dict(uv=torch.tensor(
+    [1.5, 0.0], dtype=torch.float64)), "tracer": dict(tracer_2d=1.0),
+    "tracer_cg": dict(tracer_2d=1.0)}
 
 
 def _port_solver(**opts):
@@ -401,10 +413,12 @@ def test_unported_options_raise(what):
 
 @pytest.mark.parametrize("what", sorted(PORTED))
 def test_ported_options_step(what):
-    """Each option the 2D slice ported is taken (no raise) and one step
+    """Each option the 2D slices ported is taken (no raise) and one step
     through ``iterate()`` moves the state and keeps it finite; parity
     with the reference is in ``test_torch_model2d_tracers.py``,
-    ``test_torch_wetting_drying.py`` and ``test_torch_steppers2d.py``."""
+    ``test_torch_wetting_drying.py``, ``test_torch_steppers2d.py``,
+    ``test_torch_sediment.py``, ``test_torch_turbines.py`` and
+    ``test_torch_nh.py``."""
     _, tm = meshes("rect")
     s = FlowSolver2d(tm, 20.0 + 5.0 * torch.as_tensor(tm.coords_np[:, 1])
                      / 5e3)
@@ -417,9 +431,7 @@ def test_ported_options_step(what):
     s.bnd_functions["shallow_water"][1] = {"elev": 0.05}
     s.bnd_functions["tracer"][1] = {"value": 2.0}
     x = torch.as_tensor(tm.coords_np)[tm.cells]
-    kw = {}
-    if what.startswith("tracer"):
-        kw["tracer_2d"] = 1.0
+    kw = START.get(what, {})
     s.assign_initial_conditions(
         elev=0.3 * torch.exp(-((x[..., 0] - 5e3) / 2e3) ** 2), **kw)
     start = {k: v.clone() for k, v in s._get_state().items()}
@@ -427,8 +439,10 @@ def test_ported_options_step(what):
     assert s.iteration == 1
     for k, v in s._get_state().items():
         assert bool(torch.isfinite(v).all()), k
-    moved = "tracer_2d" if what.startswith("tracer") else "elev"
+    moved = MOVED.get(what, "elev")
     assert float((s._get_state()[moved] - start[moved]).abs().max()) > 1e-6
+    if what == "turbines":
+        assert [n for n, _, _ in s.eq_sw.terms].count("TurbineDragTerm") == 1
     if what.startswith("wetting_drying"):
         assert s.eq_sw.depth.use_wetting_and_drying
         assert not getattr(s.timestepper, "assembled_solve", False)

@@ -38,7 +38,9 @@ MODEL2D = ("model.flowsolver2d", "model.callback", "solvers.newton",
            "timeintegration.implicitexplicit", "equations.tracer_2d",
            "equations.limiter", "equations.shallowwater_2d",
            "equations.swe_blocks", "mesh.generation", "utils.constant",
-           "utils.log", "utils.profiling", "fem.functionspace", "interop")
+           "utils.log", "utils.profiling", "fem.functionspace", "interop",
+           "model.sediment_model", "model.turbines", "equations.sediment_2d",
+           "equations.exner", "equations.nh")
 #: the 3D model's modules, the turbulence closure among them
 MODEL3D = ("model.flowsolver3d", "equations.turbulence",
            "equations.stability_functions", "equations.momentum_3d",

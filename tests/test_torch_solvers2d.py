@@ -145,8 +145,11 @@ def test_cg1_space_and_cell_dofs(kind):
           JFS(c.jm, "CG", 1, dim=2).cell_dofs(jnp.asarray(vv)), 1e-15)
     f = TFunction(ts).interpolate(lambda x, y: x + 2 * y)
     close(f.data, c.jm.coords_np[:, 0] + 2 * c.jm.coords_np[:, 1], 1e-15)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TFS(c.tm, "CG", 2)
+    # CG P2 (vertices, then one dof per facet) is the reference's too
+    np.testing.assert_array_equal(TFS(c.tm, "CG", 2).cell_node_map.numpy(),
+                                  np.asarray(JFS(c.jm, "CG", 2).cell_node_map))
+    with pytest.raises(NotImplementedError, match="CG3"):
+        TFS(c.tm, "CG", 3)
 
 
 # -- colour probing and assembled operators -------------------------------

@@ -24,8 +24,11 @@ namespace that the 2D model needs (``solver2d.FlowSolver2d``,
 ``RectangleMesh``, ``SquareMesh``, ``UnitSquareMesh``,
 ``PeriodicRectangleMesh``, ``FunctionSpace``, ``Function``,
 ``SpatialCoordinate``, ``Constant``, ``TracerFieldOptions``,
-``VertexBasedP1DGLimiter``, ``exp``), so ``demos/demo_2d_channel.py`` and
-``demos/demo_2d_tracer.py`` run with their import line changed.  The facade's mesh generators put the mesh on the
+``VertexBasedP1DGLimiter``, ``physical_constants``, ``exp``), so
+``demos/demo_2d_channel.py``, ``demos/demo_2d_tracer.py`` and the
+sediment-trench, tidal-array and solitary-wave examples run with their
+import lines changed (the farm options and ``TurbineFunctionalCallback``
+from ``thetis_tpu_torch.model.turbines``).  The facade's mesh generators put the mesh on the
 CUDA device, in float64, unless ``device=``/``dtype=`` say otherwise;
 without a card they raise unless the caller asks for the CPU with
 ``device="cpu"``.  The rest of the reference's ``api.py`` waits for
@@ -33,6 +36,7 @@ ROADMAP A10.
 """
 import torch
 
+from .config import physical_constants
 from .equations.limiter import VertexBasedP1DGLimiter
 from .fem.functionspace import Function, FunctionSpace, SpatialCoordinate
 from .mesh import generation as _generation
@@ -47,7 +51,8 @@ __version__ = "0.1.0"
 __all__ = ["solver2d", "FlowSolver2d", "RectangleMesh", "SquareMesh",
            "UnitSquareMesh", "PeriodicRectangleMesh", "FunctionSpace",
            "Function", "SpatialCoordinate", "Constant", "TracerFieldOptions",
-           "VertexBasedP1DGLimiter", "print_output", "exp", "pi"]
+           "VertexBasedP1DGLimiter", "physical_constants", "print_output",
+           "exp", "pi"]
 
 exp = torch.exp
 pi = float(torch.pi)

@@ -13,6 +13,7 @@ momentum (d uv/dt = ...):
   QuadraticDragTerm              (ref L666-701)   implicit
   LinearDragTerm                 (ref L728-740)   implicit
   BoundaryDragTerm               (ref L704-725)   implicit
+  TurbineDragTerm                (ref L765-791)   implicit
   MomentumSourceTerm             (ref L794-811)   source
 continuity (d eta/dt = ...):
   HUDivTerm                      (ref L396-450)   implicit
@@ -23,9 +24,10 @@ mode-split step.  With ``use_wetting_and_drying`` the total depth gains
 the bathymetry displacement of Karna et al. (2011), with alpha a scalar
 or a P1 field, and the continuity row's mass term the displaced
 volume (ref L834-850); ``mass_inverse`` stays the exact DG block
-inverse, which is then only a preconditioner.  Tidal turbines are not
-ported yet: the equation raises ``NotImplementedError`` naming ROADMAP
-A8d.
+inverse, which is then only a preconditioner.  A bed evolved by the
+Exner equation reaches every term through ``fields["bathymetry_2d"]``
+(the static tabulations otherwise); the tidal turbine farms of
+``model/turbines.py`` add their drag.
 
 Every term is functional (out-of-place updates, no host reads, no
 branching on tensor values), so the value-space block assembly
@@ -93,13 +95,11 @@ class ShallowWaterEquations(EquationBase):
         :arg options: ModelOptions2d-like namespace
         :arg bathymetry: dof array: CG1 (nv,), DG (nc, nd) or scalar
         :arg bnd_conditions: {marker: {'elev'/'uv'/'un'/'flux'/'drag': value}}
+        :arg tidal_farms: list of :class:`~..model.turbines.TidalTurbineFarm`
         """
-        if tidal_farms:
-            raise NotImplementedError(
-                "tidal turbine farms are not ported to thetis_tpu_torch yet "
-                "(ROADMAP A8d)")
         super().__init__(mesh, asm, bnd_conditions)
         self.options = options
+        self.tidal_farms = tidal_farms or []
         a0 = getattr(options, "wetting_and_drying_alpha", 0.5)
         self.depth = DepthExpression(
             use_nonlinear_equations=options.use_nonlinear_equations,
@@ -124,6 +124,8 @@ class ShallowWaterEquations(EquationBase):
         self.add_term("QuadraticDragTerm", "implicit", self._t_qdrag)
         self.add_term("LinearDragTerm", "implicit", self._t_ldrag)
         self.add_term("BoundaryDragTerm", "implicit", self._t_bdrag)
+        if self.tidal_farms:
+            self.add_term("TurbineDragTerm", "implicit", self._t_turbine)
         self.add_term("MomentumSourceTerm", "source", self._t_mom_source)
         self.add_term("HUDivTerm", "implicit", self._t_hudiv)
         self.add_term("ContinuitySourceTerm", "source", self._t_cont_source)
@@ -219,8 +221,16 @@ class ShallowWaterEquations(EquationBase):
         asm = self.asm
         uv, eta = solution["uv"], solution["elev"]
         uv_old, eta_old = solution_old["uv"], solution_old["elev"]
-        c = {"bathy_q": self.bathy_q, "bathy_grad_q": self.bathy_grad_q,
-             "bathy_tr": self.bathy_tr}
+        # morphodynamics: an Exner-evolved bed comes through the fields
+        # (ref L222-234); the static tabulations otherwise
+        bdyn = fields.get("bathymetry_2d")
+        if bdyn is not None:
+            c = {"bathy_q": self._any_cell_q(bdyn),
+                 "bathy_grad_q": self._any_cell_grad(bdyn),
+                 "bathy_tr": facet_quad_value_2s(asm, bdyn)}
+        else:
+            c = {"bathy_q": self.bathy_q, "bathy_grad_q": self.bathy_grad_q,
+                 "bathy_tr": self.bathy_tr}
         # one packed evaluation of current and lagged fields
         packed = torch.cat(
             [uv, eta[..., None], uv_old, eta_old[..., None]], dim=-1
@@ -559,6 +569,19 @@ class ShallowWaterEquations(EquationBase):
                        * self._mask_q(self.marker_masks[m], 1))
             B["uv_facet"].add(
                 torch.stack([contrib, torch.zeros_like(contrib)], dim=1))
+
+    def _t_turbine(self, c, B):
+        """Tidal turbine drag c_t density |u| u / H over the farms (ref
+        L765-791); ``fields["turbine_density_{i}"]`` overrides farm i's
+        density."""
+        for i, farm in enumerate(self.tidal_farms):
+            density_q = c["fields"].get(f"turbine_density_{i}",
+                                        farm.turbine_density_q)
+            unorm = _safe_mag((c["uv_old_q"] ** 2).sum(-1))
+            c_t = farm.friction_coefficient_q(c["uv_old_q"], c["H_q"])
+            B["uv_cell"].add(
+                -(c_t * density_q * unorm / c["H_q"])[..., None]
+                * c["uv_q"])
 
     def _t_mom_source(self, c, B):
         src = c["fields"].get("momentum_source")

@@ -3,9 +3,10 @@
 Port of ``thetis_tpu/fem/functionspace.py``.  DG dofs live in dense
 per-cell tensors ``(nc, ndofs)`` (scalars) or ``(nc, ndofs, dim)``
 (vectors); CG P1 dofs live in per-vertex tensors ``(nv[, dim])`` with the
-cell->vertex map as the cell node map.  Every tensor is on the mesh's
-device, in the mesh's dtype.  CG P2 (the ``dg-cg`` family's elevation)
-waits for ROADMAP A8e.
+cell->vertex map as the cell node map; CG P2 numbers the vertices first
+and then one dof per facet, at ``nv + facet index`` (the reference's
+numbering, ref L61-66).  Every tensor is on the mesh's device, in the
+mesh's dtype.
 """
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ class FunctionSpace:
 
     :arg mesh: Mesh2d (its ``device``/``dtype`` are the space's)
     :arg family: 'DG' or 'CG'
-    :arg degree: polynomial degree (CG: 1 only)
+    :arg degree: polynomial degree (CG: 1 or 2)
     :arg dim: value dimension (1 = scalar, 2 = vector)
     """
 
@@ -29,10 +30,8 @@ class FunctionSpace:
                   "P": "CG"}.get(family, family)
         if family == "CG" and degree == 0:
             raise ValueError("CG0 does not exist")
-        if family == "CG" and degree != 1:
-            raise NotImplementedError(
-                f"CG{degree} is not ported to thetis_tpu_torch yet "
-                "(ROADMAP A8e: the dg-cg family)")
+        if family == "CG" and degree > 2:
+            raise NotImplementedError(f"CG{degree} is not implemented")
         if family not in ("DG", "CG"):
             raise ValueError(f"unknown function space family {family!r}")
         self.mesh = mesh
@@ -53,9 +52,17 @@ class FunctionSpace:
         if self.is_dg:
             self.node_count = mesh.nc * self.ndofs
             self.cell_node_map_np = None  # implicit: (c, d) -> c*ndofs + d
-        else:
+        elif degree == 1:
             self.node_count = mesh.nv
             self.cell_node_map_np = mesh.cells_np
+        else:
+            # vertex dofs, then one dof per facet (its midpoint)
+            self.node_count = mesh.nv + mesh.nf
+            self.cell_node_map_np = np.concatenate(
+                [mesh.cells_np, mesh.nv + mesh.cell_facets_np],
+                axis=1).astype(np.int32)
+            self._cnm = torch.as_tensor(self.cell_node_map_np,
+                                        dtype=torch.int64, device=mesh.device)
 
     # -- tabulations on device -----------------------------------------
     def tab(self, name):
@@ -71,7 +78,7 @@ class FunctionSpace:
     @property
     def cell_node_map(self):
         """(nc, nd) int64 cell -> CG node map on the mesh's device."""
-        return self.mesh.cells
+        return self.mesh.cells if self.degree == 1 else self._cnm
 
     # -- dof layout ------------------------------------------------------
     def dof_shape(self):
@@ -92,12 +99,19 @@ class FunctionSpace:
     def dof_coords(self):
         """Physical coordinates of dofs, shaped like a scalar dof array
         plus a trailing coordinate axis: (nc, nd, 2) for DG, (nv, 2) for
-        CG1.  DG edge vectors are period-unwrapped so seam cells of
-        periodic meshes place their nodes at the true physical points."""
+        CG1, (nv + nf, 2) for CG2 (the vertices, then the facet
+        midpoints).  Edge vectors are period-unwrapped so seam cells and
+        facets of periodic meshes place their nodes at the true physical
+        points (ref L118-135)."""
         mesh = self.mesh
         if not self.is_dg:
-            return torch.as_tensor(mesh.coords_np, dtype=mesh.dtype,
-                                   device=mesh.device)
+            x = mesh.coords_np
+            if self.degree == 2:
+                fv = mesh.facet_verts_np
+                a = x[fv[:, 0]]
+                x = np.concatenate(
+                    [x, a + 0.5 * mesh._wrap_dx(x[fv[:, 1]] - a)], axis=0)
+            return torch.as_tensor(x, dtype=mesh.dtype, device=mesh.device)
         ref = self.element.dof_coords  # (nd, 2)
         p = mesh.coords_np[mesh.cells_np]  # (nc,3,2)
         J = np.stack([mesh._wrap_dx(p[:, 1] - p[:, 0]),

@@ -136,6 +136,12 @@ _NEWTON_FIELDS = ("snes_rtol", "snes_atol", "snes_max_it", "ksp_rtol",
 _SUB_OPTIONS = ("swe_timestepper_options", "tracer_timestepper_options",
                 "sediment_timestepper_options", "exner_timestepper_options",
                 "sediment_model_options", "nh_model_options")
+#: of those, the ones whose values are carried across
+_CARRIED_SUB_OPTIONS = ("swe_timestepper_options",
+                        "tracer_timestepper_options",
+                        "sediment_model_options", "nh_model_options")
+#: the turbine farm options (``{subdomain: farm options or a list}``)
+_FARM_OPTIONS = ("tidal_turbine_farms", "discrete_tidal_turbine_farms")
 
 
 def _option_value(v, device, dtype, mesh=None):
@@ -193,23 +199,55 @@ def _tracer_options(ro, conv):
     return out
 
 
+def _farm_options(fo, conv):
+    """The port's farm options object for a reference one: the same class
+    by name, every value converted (the density Function among them), the
+    turbine options attribute by attribute; lists and numpy tables pass
+    as they are."""
+    from .model import turbines
+
+    out = getattr(turbines, type(fo).__name__)()
+    for k, v in vars(fo).items():
+        if k.startswith("_"):
+            continue
+        if k == "turbine_options":
+            to = out.turbine_options
+            for tk, tv in vars(v).items():
+                if not tk.startswith("_"):
+                    setattr(to, tk, tv if isinstance(tv, (list, np.ndarray))
+                            else conv(tv))
+        elif isinstance(v, (list, np.ndarray)):
+            setattr(out, k, v)
+        else:
+            setattr(out, k, conv(v))
+    return out
+
+
 def flowsolver2d_from_reference(ref, mesh2d):
     """The port's :class:`~thetis_tpu_torch.model.flowsolver2d.FlowSolver2d`
     on ``mesh2d`` (its device and dtype), set up from a reference
     ``FlowSolver2d`` through numpy: the bathymetry, every option value
     (the SWE and tracer stepper types first, then their stepper options;
-    the tracers' options, a callable tracer source excepted), the
-    shallow-water and tracer boundary data and, when the reference is
-    initialized, its state (``uv_2d``, ``elev_2d`` and each tracer) and
-    time counters (the port solver is then initialized too).  The
-    reference is read, never changed, and nothing of JAX is imported:
-    array values go through ``np.asarray``."""
+    the tracers' options, a callable tracer source excepted; the sediment
+    and non-hydrostatic sub-options; each turbine farm's options with its
+    density Function, coordinates and turbine options), the shallow-water,
+    tracer and sediment boundary data and, when the reference is
+    initialized, its state (``uv``, ``elev``, each tracer and, as the
+    options say, ``sediment_2d``, ``bathymetry``, ``q`` and ``w``) and
+    time counters (the port solver is then initialized too).  One port
+    object stands for one reference object: a Constant or Function shared
+    by several options or markers stays shared.  The reference is read,
+    never changed, and nothing of JAX is imported: array values go
+    through ``np.asarray``."""
     from .model.flowsolver2d import FlowSolver2d
 
     dev, dt = mesh2d.device, mesh2d.dtype
+    memo = {}
 
     def conv(v):
-        return _option_value(v, dev, dt)
+        if id(v) not in memo:
+            memo[id(v)] = (v, _option_value(v, dev, dt, mesh=mesh2d))
+        return memo[id(v)][1]
 
     s = FlowSolver2d(mesh2d, _to_tensor(np.asarray(ref.bathymetry_dof),
                                         dev, dt))
@@ -222,21 +260,30 @@ def flowsolver2d_from_reference(ref, mesh2d):
             continue
         if k == "tracer":
             po.tracer = _tracer_options(v, conv)
+        elif k in _FARM_OPTIONS:
+            setattr(po, k, {
+                sub: ([_farm_options(f, conv) for f in fo]
+                      if isinstance(fo, (list, tuple))
+                      else _farm_options(fo, conv))
+                for sub, fo in v.items()})
         else:
             setattr(po, k, conv(v))
-    for sub in ("swe_timestepper_options", "tracer_timestepper_options"):
+    for sub in _CARRIED_SUB_OPTIONS:
         for k, v in vars(getattr(ro, sub)).items():
             if not k.startswith("_"):
                 setattr(getattr(po, sub), k, conv(v))
-    for which in ("shallow_water", "tracer"):
+    for which in ("shallow_water", "tracer", "sediment"):
         for marker, spec in ref.bnd_functions[which].items():
             s.bnd_functions[which][marker] = {
                 k: conv(v) for k, v in spec.items()}
     if getattr(ref, "_initialized", False):
         s.initialize()
-        for key in ["uv_2d", "elev_2d"] + list(ref.tracer_labels):
-            s.fields[key].data = _to_tensor(
-                np.asarray(ref.fields[key].data), dev, dt)
+        state = ref._get_state()
+        if sorted(state) != sorted(s._get_state()):
+            raise KeyError(f"state keys differ: reference {sorted(state)}, "
+                           f"port {sorted(s._get_state())}")
+        s._set_state({k: _to_tensor(np.asarray(v), dev, dt)
+                      for k, v in state.items()})
         s.simulation_time = float(ref.simulation_time)
         s.iteration = int(ref.iteration)
         s.i_export = int(ref.i_export)

@@ -28,17 +28,20 @@ kernel (``kernels/ringmv.py``).  Wetting-and-drying (constant or
 automatic alpha) keeps the SWE off the assembled path, as in the
 reference: its solves are the matrix-free Newton ones.
 
-2D tracers (DG or CG1, one or several, with the vertex-based limiter,
-sources, callable reaction sources and the tracer Picard sweeps) are
-stepped after the SWE in each step, as the reference's coupled
-integrator does; ``tracer_only`` skips the SWE.
+Each step advances, in the reference's order: the SWE (its bed the
+Exner-evolved one when ``use_exner``), then under
+``solve_nonhydrostatic_pressure`` the NH Poisson solve, the uv/w update
+and the free-surface corrector, then the 2D tracers (DG or CG1, one or
+several, with the vertex-based limiter, sources, callable reaction
+sources and the tracer Picard sweeps), the suspended sediment (with the
+limiter) and the Exner bed; ``tracer_only`` skips the SWE.  Continuous
+and discrete tidal turbine farms add their drag to the SWE.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: sediment and Exner (A8c), tidal turbines and the non-hydrostatic
-pressure (A8d), the ``dg-cg`` (A8e) and ``rt-dg``/``bdm-dg`` (A8f)
-families and sphere meshes (A8g); ``differentiable_forward`` (A9);
-exporters (``no_exports=False``), the diagnostic HDF5 series and
-``load_state`` (A10).
+item: the ``dg-cg`` (A8e) and ``rt-dg``/``bdm-dg`` (A8f) families and
+sphere meshes (A8g); ``differentiable_forward`` (A9); exporters
+(``no_exports=False``), the diagnostic HDF5 series and ``load_state``
+(A10).
 """
 import time as time_mod
 
@@ -46,7 +49,10 @@ import numpy as np
 import torch
 
 from ..config import physical_constants
+from ..equations.exner import ExnerEquation
 from ..equations.limiter import VertexBasedP1DGLimiter
+from ..equations.nh import DepthIntegratedPoissonSolver, FreeSurfaceEquation2D
+from ..equations.sediment_2d import SedimentEquation2D
 from ..equations.shallowwater_2d import ShallowWaterEquations
 from ..equations.tracer_2d import TracerEquation2D, TracerEquation2DCG
 from ..fem.assembly import DGAssembler
@@ -60,6 +66,8 @@ from .callback import (CallbackManager, TracerMassConservation2DCallback,
                        TracerOvershootCallBack, VolumeConservation2DCallback)
 from .field_defs import FieldDict, field_metadata
 from .options import ModelOptions2d
+from .sediment_model import SedimentModel
+from .turbines import DiscreteTidalTurbineFarm, TidalTurbineFarm
 
 __all__ = ["FlowSolver2d"]
 
@@ -127,21 +135,6 @@ class FlowSolver2d:
             raise ValueError(f"unknown element family {family!r}")
         if getattr(self.mesh2d, "geometric_dimension", 2) == 3:
             raise _unported("manifold (sphere) meshes", "A8g")
-        so = o.sediment_model_options
-        nho = o.nh_model_options
-        checks = [
-            (so is not None and so.solve_suspended_sediment,
-             "suspended sediment", "A8c"),
-            (so is not None and so.use_exner, "the Exner bed evolution",
-             "A8c"),
-            (bool(o.tidal_turbine_farms or o.discrete_tidal_turbine_farms),
-             "tidal turbine farms", "A8d"),
-            (nho is not None and nho.solve_nonhydrostatic_pressure,
-             "the non-hydrostatic pressure", "A8d"),
-        ]
-        for bad, what, item in checks:
-            if bad:
-                raise _unported(what, item)
 
     # ------------------------------------------------------------------
     def create_function_spaces(self):
@@ -187,9 +180,19 @@ class FlowSolver2d:
                     filename=meta.filename)
             f[label] = Function(fs.Q_2d, name=label)
         self.solve_tracer = len(self.tracer_labels) > 0
-        self.solve_nh = False
-        self.solve_sediment = False
-        self.solve_exner = False
+        nho = self.options.nh_model_options
+        self.solve_nh = bool(nho and nho.solve_nonhydrostatic_pressure)
+        if self.solve_nh:
+            # the NH pressure q (moved to the Poisson solver's space in
+            # create_equations) and the depth-averaged vertical velocity w
+            # (ref solver2d.py:443-449)
+            f.q_2d = Function(fs.P1_2d, name="q_2d")
+            f.w_2d = Function(fs.H_2d, name="w_2d")
+        so = self.options.sediment_model_options
+        self.solve_sediment = bool(so and so.solve_suspended_sediment)
+        self.solve_exner = bool(so and so.use_exner)
+        if self.solve_sediment:
+            f.sediment_2d = Function(fs.Q_2d, name="sediment_2d")
         self._functions_created = True
 
     def set_wetting_and_drying_alpha(self):
@@ -243,13 +246,43 @@ class FlowSolver2d:
         o = self.options
         self.set_wetting_and_drying_alpha()
         bathy = self.fields.bathymetry_2d.data
-        self.tidal_farms = []
+        # tidal turbine farms (ref solver2d.py:462-485)
+        def farms(by_subdomain):
+            for subdomain, farm_opts in (by_subdomain or {}).items():
+                mask = self._subdomain_mask(subdomain)
+                for fo in (farm_opts if isinstance(farm_opts, (list, tuple))
+                           else [farm_opts]):
+                    yield fo, mask
+
+        self.tidal_farms = (
+            [TidalTurbineFarm(self.asm, self._value(fo.turbine_density), fo,
+                              cell_mask=mask)
+             for fo, mask in farms(o.tidal_turbine_farms)]
+            + [DiscreteTidalTurbineFarm(self.asm, fo, cell_mask=mask)
+               for fo, mask in farms(o.discrete_tidal_turbine_farms)])
         self.eq_sw = ShallowWaterEquations(
             self.mesh2d, self.asm, o, bathymetry=bathy,
             bnd_conditions=self.bnd_functions["shallow_water"],
             tidal_farms=self.tidal_farms,
         )
         self.depth = self.eq_sw.depth
+        if self.solve_nh:
+            nho = o.nh_model_options
+            if bathy.dim() != 1:
+                raise ValueError("the NH pressure solver requires a CG1 "
+                                 "bathymetry")
+            self.poisson_solver = DepthIntegratedPoissonSolver(
+                self.mesh2d, self.asm, self.depth, float(o.timestep),
+                bnd_conditions=self.bnd_functions["shallow_water"],
+                rtol=float(nho.q_solver_rtol),
+                maxiter=int(nho.q_solver_maxiter),
+                q_degree=int(nho.q_degree))
+            # q_2d's dofs follow the Poisson space (CG P2 by default)
+            self.fields.q_2d = Function(self.poisson_solver.q_space,
+                                        name="q_2d")
+            self.eq_free_surface = FreeSurfaceEquation2D(
+                self.mesh2d, self.asm, self.depth, bathy,
+                bnd_conditions=self.bnd_functions["shallow_water"])
         if self.solve_tracer:
             tracer_cls = (TracerEquation2DCG
                           if o.tracer_element_family == "cg"
@@ -259,12 +292,44 @@ class FlowSolver2d:
                 labels=self.tracer_labels,
                 bnd_conditions=self.bnd_functions["tracer"],
                 depth=self.depth)
+        if self.solve_tracer or self.solve_sediment:
             self.tracer_limiter = (
                 VertexBasedP1DGLimiter(self.function_spaces.Q_2d)
                 if o.use_limiter_for_tracers
                 and o.tracer_element_family != "cg" else None)
+        # sediment and Exner (ref solver2d.py:507-524)
         self.sediment_model = None
+        if self.solve_sediment or self.solve_exner:
+            so = o.sediment_model_options
+            cls = so.sediment_model_class or SedimentModel
+            self.sediment_model = cls(o, self.mesh2d, depth=self.depth)
+            if self.solve_sediment:
+                self.eq_sediment = SedimentEquation2D(
+                    self.mesh2d, self.asm, o, bathymetry=bathy,
+                    sediment_model=self.sediment_model,
+                    bnd_conditions=self.bnd_functions["sediment"],
+                    depth=self.depth,
+                    conservative=so.use_sediment_conservative_form)
+            if self.solve_exner:
+                self.eq_exner = ExnerEquation(
+                    self.mesh2d, self.asm, self.function_spaces.P1_2d,
+                    self.depth, self.sediment_model, o,
+                    bnd_conditions=self.bnd_functions["shallow_water"],
+                    depth_integrated_sediment=(
+                        so.use_sediment_conservative_form))
         self._equations_created = True
+
+    def _subdomain_mask(self, subdomain):
+        """Cell mask of a subdomain id (ref ``solver2d.py:1087-1098``):
+        None for 'everywhere', else from the mesh's per-cell markers
+        ``cell_markers_np``."""
+        if subdomain in ("everywhere", None):
+            return None
+        markers = getattr(self.mesh2d, "cell_markers_np", None)
+        if markers is None:
+            raise ValueError("mesh has no cell markers; cannot restrict to "
+                             f"subdomain {subdomain}")
+        return (np.asarray(markers) == int(subdomain)).astype(float)
 
     def _assembled_eligible(self, choice):
         """The assembled-Jacobian KSP / assembled wave PC require P1DG
@@ -423,6 +488,27 @@ class FlowSolver2d:
                                                  0.5))
             self.tracer_stepper = get_stepper(tname, self.eq_tracer,
                                               self.dt, o, **tkw)
+        # sediment, Exner and the NH free surface (ref solver2d.py:595-615)
+        so = o.sediment_model_options
+
+        def semi(name):
+            return ({"semi_implicit": True}
+                    if name in ("CrankNicolson", "BackwardEuler") else {})
+
+        if self.solve_sediment:
+            self.sediment_stepper = get_stepper(
+                so.sediment_timestepper_type, self.eq_sediment, self.dt, o,
+                **semi(so.sediment_timestepper_type))
+        if self.solve_exner:
+            self.exner_stepper = get_stepper(
+                so.exner_timestepper_type, self.eq_exner, self.dt, o,
+                **semi(so.exner_timestepper_type))
+        if self.solve_nh:
+            nho = o.nh_model_options
+            self.fs_stepper = (get_stepper(
+                nho.free_surface_timestepper_type, self.eq_free_surface,
+                self.dt, o, semi_implicit=True)
+                if nho.update_free_surface else None)
         self._build_advance()
         self._timestepper_created = True
 
@@ -535,6 +621,17 @@ class FlowSolver2d:
         f.pop("elev_2d")
         return f
 
+    def _add_sediment_diffusivity(self, tracer_extra):
+        """The sediment's diffusivity (its own option before the global
+        one, ref ``solver2d.py:899-907``) in the tracer fields."""
+        if not self.solve_sediment:
+            return tracer_extra
+        so = self.options.sediment_model_options
+        diff = so.horizontal_diffusivity or self.options.horizontal_diffusivity
+        if diff is not None:
+            tracer_extra["diffusivity_h-sediment_2d"] = self._value(diff)
+        return tracer_extra
+
     def _gather_bnd(self, which):
         return {int(marker): {k: self._value(v) for k, v in spec.items()}
                 for marker, spec in self.bnd_functions[which].items()}
@@ -542,8 +639,10 @@ class FlowSolver2d:
     # ------------------------------------------------------------------
     def _build_advance(self):
         """The coupled advance (ref ``solver2d.py:746-907``,
-        ``coupled_timeintegrator_2d.py:93-135``): SWE, then the tracers
-        with their Picard sweeps, each sweep followed by the limiter."""
+        ``coupled_timeintegrator_2d.py:93-135``): SWE (on the state's bed
+        under Exner), the NH pressure and free-surface corrector, the
+        tracers with their Picard sweeps (each sweep followed by the
+        limiter), the sediment (and the limiter), the Exner bed."""
         swe_stepper = self.timestepper
         solve_tracer = self.solve_tracer
         tracer_stepper = getattr(self, "tracer_stepper", None)
@@ -562,14 +661,46 @@ class FlowSolver2d:
                 "-family tracer timestepper (ref "
                 "coupled_timeintegrator_2d.py:115-135)")
 
+        solve_sediment = self.solve_sediment
+        solve_exner = self.solve_exner
+        sediment_stepper = getattr(self, "sediment_stepper", None)
+        exner_stepper = getattr(self, "exner_stepper", None)
+        sediment_model = self.sediment_model
+        depth = self.depth
+        cells = self.mesh2d.cells
+        nv = self.mesh2d.nv
+        static_bathy = self.fields.bathymetry_2d.data
+        bnd_sed = self._gather_bnd("sediment") if solve_sediment else {}
+        solve_nh = self.solve_nh
+        poisson = getattr(self, "poisson_solver", None)
+        fs_stepper = getattr(self, "fs_stepper", None)
+
         def advance(t, state, swe_fields, tracer_extra, bnd_sw, bnd_tr):
             sw = {"uv": state["uv"], "elev": state["elev"]}
+            if solve_exner:
+                swe_fields = dict(swe_fields)
+                swe_fields["bathymetry_2d"] = state["bathymetry"]
             if not tracer_only:
                 sw = swe_stepper.advance(t, sw, swe_fields, swe_fields,
                                          bnd_sw)
             new_state = dict(state)
             new_state["uv"] = sw["uv"]
             new_state["elev"] = sw["elev"]
+            if solve_nh:
+                # the serial NH advance (ref coupled_timeintegrator_2d.py:
+                # 205-219): Poisson solve, velocity update, free-surface
+                # corrector from the pre-step elevation with the mid-point
+                # velocity
+                q, uv_c, w_c = poisson.solve(sw["uv"], state["w"],
+                                             sw["elev"], static_bathy,
+                                             q0=state["q"])
+                new_state["q"] = q
+                new_state["w"] = w_c
+                new_state["uv"] = uv_c
+                if fs_stepper is not None:
+                    ff = {"uv_2d": 0.5 * (state["uv"] + uv_c)}
+                    new_state["elev"] = fs_stepper.advance(
+                        t, {"elev": state["elev"]}, ff, ff, bnd_sw)["elev"]
             if solve_tracer:
                 tf = dict(tracer_extra)
                 tf["uv_2d"] = new_state["uv"]
@@ -592,6 +723,39 @@ class FlowSolver2d:
                         tr = {l: limiter.apply(cl) for l, cl in tr.items()}
                 for l in labels:
                     new_state[l] = tr[l]
+            if solve_sediment:
+                sf = {"uv_2d": new_state["uv"], "elev_2d": new_state["elev"],
+                      "lax_friedrichs_tracer_scaling_factor":
+                          tracer_extra.get(
+                              "lax_friedrichs_tracer_scaling_factor", 1.0)}
+                if solve_exner:
+                    sf["bathymetry_2d"] = state["bathymetry"]
+                diff = tracer_extra.get("diffusivity_h-sediment_2d")
+                if diff is not None:
+                    sf["diffusivity_h-sediment_2d"] = diff
+                if sediment_model.use_advective_velocity_correction:
+                    # the factor at the P1DG dof points (the reference's
+                    # Function product)
+                    b = state["bathymetry"] if solve_exner else static_bathy
+                    b_dof = (b[cells] if b.dim() == 1 and b.shape[0] == nv
+                             else b)
+                    H_dof = depth.total_depth(b_dof, new_state["elev"])
+                    sf["tracer_advective_velocity_factor"] = (
+                        sediment_model
+                        .get_advective_velocity_correction_factor(
+                            new_state["uv"], H_dof))
+                sed = sediment_stepper.advance(
+                    t, {"sediment_2d": state["sediment_2d"]}, sf, sf,
+                    bnd_sed)["sediment_2d"]
+                if limiter is not None:
+                    sed = limiter.apply(sed)
+                new_state["sediment_2d"] = sed
+            if solve_exner:
+                ef = {"uv_2d": new_state["uv"], "elev_2d": new_state["elev"],
+                      "sediment": new_state.get("sediment_2d")}
+                new_state["bathymetry"] = exner_stepper.advance(
+                    t, {"bathymetry": state["bathymetry"]}, ef, ef,
+                    {})["bathymetry"]
             return new_state
 
         def advance_n(state, t0, dt, n, swe_fields, tracer_extra, bnd_sw,
@@ -608,16 +772,33 @@ class FlowSolver2d:
         self._advance_n = advance_n
 
     def _get_state(self):
-        s = {"uv": self.fields.uv_2d.data, "elev": self.fields.elev_2d.data}
+        """ref ``solver2d.py:908-931``."""
+        f = self.fields
+        s = {"uv": f.uv_2d.data, "elev": f.elev_2d.data}
         for l in self.tracer_labels:
-            s[l] = self.fields[l].data
+            s[l] = f[l].data
+        if self.solve_sediment:
+            s["sediment_2d"] = f.sediment_2d.data
+        if self.solve_exner:
+            s["bathymetry"] = f.bathymetry_2d.data
+        if self.solve_nh:
+            s["q"] = f.q_2d.data
+            s["w"] = f.w_2d.data
         return s
 
     def _set_state(self, s):
-        self.fields.uv_2d.data = s["uv"]
-        self.fields.elev_2d.data = s["elev"]
+        f = self.fields
+        f.uv_2d.data = s["uv"]
+        f.elev_2d.data = s["elev"]
         for l in self.tracer_labels:
-            self.fields[l].data = s[l]
+            f[l].data = s[l]
+        if self.solve_sediment:
+            f.sediment_2d.data = s["sediment_2d"]
+        if self.solve_exner:
+            f.bathymetry_2d.data = s["bathymetry"]
+        if self.solve_nh:
+            f.q_2d.data = s["q"]
+            f.w_2d.data = s["w"]
 
     # ------------------------------------------------------------------
     def differentiable_forward(self, *args, **kwargs):
@@ -628,8 +809,9 @@ class FlowSolver2d:
 
     # ------------------------------------------------------------------
     def assign_initial_conditions(self, elev=None, uv=None, **tracers):
-        """ref ``solver2d.py:747-783``; ``tracer=`` is the reference's
-        alias of ``tracer_2d``, other unknown labels are ignored."""
+        """ref ``solver2d.py:747-783``, ``:1043-1054``; ``tracer=`` is the
+        reference's alias of ``tracer_2d``, ``sediment=`` that of
+        ``sediment_2d``; other unknown labels are ignored."""
         if not self._initialized:
             self.initialize()
         if elev is not None:
@@ -641,7 +823,10 @@ class FlowSolver2d:
         for label, value in tracers.items():
             if label == "tracer" and "tracer_2d" in self.tracer_labels:
                 label = "tracer_2d"
-            if label in self.tracer_labels:
+            if label == "sediment":
+                label = "sediment_2d"
+            if label in self.tracer_labels or (
+                    label == "sediment_2d" and self.solve_sediment):
                 self.fields[label].data = self._interp_to(
                     self.function_spaces.Q_2d, value)
 
@@ -804,7 +989,8 @@ class FlowSolver2d:
 
         while self.simulation_time <= o.simulation_end_time - t_epsilon:
             swe_fields = self._gather_swe_fields()
-            tracer_extra = self._gather_tracer_extra(state)
+            tracer_extra = self._add_sediment_diffusivity(
+                self._gather_tracer_extra(state))
             bnd_sw = self._gather_bnd("shallow_water")
             bnd_tr = self._gather_bnd("tracer")
             if use_scan:
