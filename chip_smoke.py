@@ -47,7 +47,13 @@ PyTorch version:
   sediment-trench, tidal-array and solitary-wave examples at their own
   sizes, each written for the port, and each at the bench's width
   (~10^5 cells), where the SWE's CN runs the ring matvec and block-Jacobi
-  kernels every step.
+  kernels every step;
+* the other element families and meshes: dg-cg (P1DG velocity x P2 CG
+  elevation), rt-dg and bdm-dg (RT1/BDM1 x P0, RT2/BDM2 x P1DG), the
+  icosahedral sphere (Williamson 2) and a gmsh file, each at its
+  reference test's or example's size and at the bench's width; none of
+  these paths runs a hand kernel (the assembled ring solve is dg-dg
+  only), and each is checked at 0 launches.
 
 Phases, each printing its lines:
 
@@ -164,7 +170,35 @@ Phases, each printing its lines:
     checks (crest within 30 m of x0 + c t, amplitude above 0.7 a); (b)
     the wave on 640x80 (102,400 cells, P2 q), f32, the Newton CN under
     the assembled wave PC, 1 + 5 steps: ms/step, launches (each > 0),
-    BiCGStab iterations a step.
+    BiCGStab iterations a step;
+25. dg-cg: (a) ``tests/test_dgcg.py``'s standing wave at its size (100x1,
+    f64): the Newton CN at 10 and 20 steps and PressureProjectionPicard at
+    20, each in a process of its own in phase 21's block (``python3
+    chip_smoke.py dgcg_wave <cn10|cn20|ppp20>``), against the test's
+    bounds (2e-2, 5e-3, 5e-3), and ``test_dgcg_mass_conservation``'s
+    closed basin (20x4, 30 CN steps, f64) in another (``python3
+    chip_smoke.py dgcg_volume``), its volume to the test's 1e-10 with the
+    scatters' atomic adds in no fixed order; (b) the bench's 320x160
+    mesh, P1DG uv x P2 CG elevation (819,841 DOF), f32,
+    PressureProjectionPicard under the wave-Schur PC at wave CFL 10, 1 + 3
+    steps: ms/step, Newton iterations and FGMRES cycles, finite, the
+    volume to 1e-6, the mass PCG replayed as a CUDA graph (as in 26b and
+    27b: every mass PCG of the run replays, none solves eagerly);
+26. rt-dg and bdm-dg: (a) ``test_rtdg.py::test_rtdg_flowsolver`` and
+    ``test_rt2.py::test_rt2_facade`` (both families) at their sizes, f64,
+    against their bounds (``python3 chip_smoke.py hdiv_cases``); (b) RT1
+    x P0 (255,840 DOF), RT2 x P1DG and BDM2 x P1DG on 320x160, f32, the
+    semi-implicit CN at 2 hmin/c, 1 + 3 steps each;
+27. the sphere and gmsh: (a) ``examples/williamson2/williamson2.py`` at
+    its regression size (refinement 3, 24 steps, f64) against its ``l2 <
+    0.05`` (after 26a, in its process); (b) Williamson 2 at
+    refinement 6 (81,920 cells) under rt-dg and bdm-dg, f32, 1 + 3 steps,
+    the volume to 1e-9; (c) the bench's rectangle written as a gmsh 2.2
+    file, read onto the card (the RectangleMesh's tables) and stepped once
+    (dg-dg SSPRK33).  Phase 21 gains one f64 GPU-against-CPU step of each
+    configuration of 25-27 (20x10; refinement 3) at 1e-10, and a process
+    with the profiler's view of one step of each full-width run
+    (``python3 chip_smoke.py profile_families``).
 
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
@@ -204,6 +238,7 @@ from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 from thetis_tpu_torch.model.flowsolver3d import FlowSolver
 from thetis_tpu_torch.solvers.assembled import get_coloring, ring_tables
 from thetis_tpu_torch.solvers.newton import NewtonParameters
+from thetis_tpu_torch.solvers.pcg import JacobiPCG
 from thetis_tpu_torch.timeintegration.steppers import get_stepper
 from thetis_tpu_torch.utils.constant import Constant
 from thetis_tpu_torch.utils.coordsys import beta_plane_coriolis_params
@@ -301,20 +336,23 @@ def median_ms(fn, reps=50, warm=5):
     return ts[reps // 2]
 
 
-def device_rows(fn):
+def device_rows(fn, host=True):
     """Run ``fn`` under torch.profiler; returns ``(us, count, name)`` of
     every device kernel, largest device time first.  Now and then a
     capture comes back without one device record (on the card, of 1 launch
     and of 25, in a fresh process too, and twice running), so an empty one
     is taken again a moment later, five times at most; the callers raise
-    if the rows are still empty."""
+    if the rows are still empty.  ``host=False`` records the device
+    activity alone: a step of ~10^6 launches also records millions of host
+    ops, whose processing takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
+                  else [ProfilerActivity.CUDA])
     for attempt in range(5):
         time.sleep(0.2 * attempt)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         rows = []
@@ -2493,20 +2531,25 @@ def phase_cases():
     """The f64 checks that time nothing, after every timed phase: the
     Thacker case (``tests/test_thacker.py``: CN, DIRK22, BackwardEuler)
     and PPP on the standing wave (``tests/test_standing_wave.py``, 20
-    steps), each launch-bound and in a process of its own, all four at
-    once, with the profile of phases 22-24 (``profile_slice9``) as a
-    fifth; meanwhile, in this process on 4 CPU threads, the GPU-against-CPU
-    parity of phase 7 (3D), phase 11 (2D, this slice's configurations
-    with it), SteadyState and SSPIMEX."""
+    steps), each launch-bound and in a process of its own, all at once,
+    with the tidal-array and solitary-wave examples, the profile of
+    phases 22-24 (``profile_slice9``), the dg-cg standing waves (25a),
+    the H(div) and Williamson cases (26a, 27a) and the profile of phases
+    25-27 (``profile_families``); meanwhile, in this process on 4 CPU
+    threads, the GPU-against-CPU parity of phase 7 (3D), phase 11 (2D,
+    with the configurations of phases 18-27), SteadyState and
+    SSPIMEX."""
     procs = start_cases([["thacker", k] for k in THACKER_BOUNDS]
                         + [["standing_wave"], ["tidal_array"],
-                           ["solitary_wave"], ["profile_slice9"]])
+                           ["solitary_wave"], ["profile_slice9"]]
+                        + [["dgcg_wave", k] for k in DGCG_WAVES]
+                        + [["dgcg_volume"], ["hdiv_cases"], ["profile_families"]])
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 4))
     try:
         for phase in (phase_parity3d, phase_model_parity,
                       phase_model_parity_slice, phase_model_parity_slice9,
-                      phase_small_steppers):
+                      phase_model_parity_families, phase_small_steppers):
             t0 = time.perf_counter()
             phase()
             log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -3145,6 +3188,582 @@ def phase_model_parity_slice9():
             f"{PARITY_RTOL:g}: ok (the step moved {moved})")
 
 
+# -- the element families, the sphere and gmsh (phases 25-27) -------------
+#: tests/test_dgcg.py::test_dgcg_standing_wave's cases: (stepper, steps,
+#: the test's bound on the relative L2 elevation error)
+DGCG_WAVES = {"cn10": ("CrankNicolson", 10, 2e-2),
+              "cn20": ("CrankNicolson", 20, 5e-3),
+              "ppp20": ("PressureProjectionPicard", 20, 5e-3)}
+#: test_dgcg_mass_conservation's bound on the closed basin's volume, f64
+DGCG_VOLUME_RTOL = 1e-10
+FAMILY_STEPS = 3
+#: the dg-cg corrector's f32 budget (the stepper's default ksp_rtol 1e-10
+#: is an f64 setting) with its restart of 30
+F32_PPP = dict(ksp_rtol=1e-5, ksp_max_it=60, gmres_restart=30)
+#: the f64 parity steps of phases 25-27: solved to roundoff
+FAMILY_PARITY_PARAMS = dict(ksp_rtol=1e-12, ksp_max_it=240, gmres_restart=40)
+FAMILY_PARITY_RTOL = 1e-10
+NX_FAMILY, NY_FAMILY = 20, 10                # the parity steps' mesh
+R_EARTH, OMEGA_EARTH = 6371220.0, 7.292e-5
+W2_BOUND = 0.05                          # examples/williamson2: l2 < 0.05
+W2_REFINEMENT = 6                        # 81,920 cells
+HDIV_VOLUME_RTOL = 1e-9                  # the sphere's volume, f32
+#: the full-width H(div) runs: (family, polynomial degree)
+HDIV_CASES = {"RT1xP0": ("rt-dg", 0), "RT2xP1DG": ("rt-dg", 1),
+              "BDM2xP1DG": ("bdm-dg", 1)}
+
+
+def require_no_kernel(tag, n):
+    if any(n.values()):
+        raise AssertionError(f"{tag}: this path runs no hand kernel, but "
+                             f"launched {n}")
+
+
+def dgcg_standing_wave(device, timesteps, stepper, params=None):
+    """``tests/test_dgcg.py::run_standing_wave`` (100 x 1 over 5 x 1 km,
+    depth 100 m, one period; the Newton CN or PressureProjectionPicard),
+    f64; returns the solver and the relative L2 elevation error."""
+    lx, ly, depth = 5e3, 1e3, 100.0
+    period = 2 * lx / math.sqrt(float(physical_constants["g_grav"])
+                                * depth)
+    dt = period / timesteps
+    mesh = RectangleMesh(100, 1, lx, ly, device=device, dtype=torch.float64)
+    s = FlowSolver2d(mesh, Function(FunctionSpace(mesh, "CG", 1)).assign(
+        depth))
+    o = s.options
+    o.element_family = "dg-cg"
+    o.timestep = dt
+    o.simulation_export_time = dt * timesteps
+    o.simulation_end_time = period - 0.1 * dt
+    o.no_exports = True
+    o.swe_timestepper_type = stepper
+    if stepper == "CrankNicolson":
+        o.swe_timestepper_options.use_semi_implicit_linearization = False
+    if params is not None:
+        o.swe_timestepper_options.solver_parameters = NewtonParameters(
+            **params)
+    s.create_function_spaces()
+    e0 = Function(s.function_spaces.H_2d).interpolate(
+        lambda x, y: torch.cos(math.pi * x / lx))
+    s.assign_initial_conditions(elev=e0)
+    s.iterate()
+    rel = float(s.eq_sw.norm_elev(s.fields.elev_2d.data - e0.data)) \
+        / math.sqrt(lx * ly)
+    return s, rel
+
+
+def dgcg_wave_case(key):
+    """Phase 25a, one case in a process of its own (``python3
+    chip_smoke.py dgcg_wave <cn10|cn20|ppp20>``, started in phase 21's
+    block): the test's standing wave at its size, f64, on the card,
+    against the test's bound."""
+    phase_device()
+    stepper, steps, bound = DGCG_WAVES[key]
+    reset_counts()
+    (s, rel), t = sync_time(lambda: dgcg_standing_wave(
+        torch.device("cuda"), steps, stepper))
+    require_no_kernel(f"dg-cg wave {key}", counts())
+    if s.iteration != steps or not rel < bound:
+        raise AssertionError(f"dg-cg standing wave {key}: {s.iteration} "
+                             f"steps, relative error {rel} (bound {bound})")
+    pc = ("the wave-Schur PC" if stepper == "PressureProjectionPicard"
+          else f"the {s.timestepper.preconditioner} PC")
+    log(f"[dg-cg standing wave] tests/test_dgcg.py case, f64 100x1, "
+        f"{stepper} under {pc}, "
+        f"{steps} steps in {t:.2f} s ({t / steps * 1e3:.1f} ms/step): "
+        f"relative L2 error {rel:.4e} < {bound:g}; last step "
+        f"{s.timestepper.stats}")
+
+
+def dgcg_volume_case():
+    """Phase 25a, in a process of its own (``python3 chip_smoke.py
+    dgcg_volume``, started in phase 21's block):
+    ``tests/test_dgcg.py::test_dgcg_mass_conservation`` on the card, f64:
+    the closed 20x4 basin's volume over 30 CN steps to the test's 1e-10,
+    with the scatters' atomic adds in no fixed order."""
+    phase_device()
+    lx = 2e3
+
+    def run():
+        mesh = RectangleMesh(20, 4, lx, lx / 5, device=torch.device("cuda"),
+                             dtype=torch.float64)
+        s = FlowSolver2d(mesh, Function(FunctionSpace(mesh, "CG", 1)).assign(
+            20.0))
+        o = s.options
+        o.element_family = "dg-cg"
+        o.timestep = 10.0
+        o.simulation_export_time = 100.0
+        o.simulation_end_time = 300.0
+        o.no_exports = True
+        o.swe_timestepper_type = "CrankNicolson"
+        s.create_function_spaces()
+        e0 = Function(s.function_spaces.H_2d).interpolate(
+            lambda x, y: 0.5 * torch.exp(-(((x - lx / 2) / 300.0) ** 2)))
+        s.assign_initial_conditions(elev=e0)
+        s.initialize()
+        v0 = s.compute_volume_2d()
+        s.iterate()
+        return s, v0
+
+    reset_counts()
+    (s, v0), t = sync_time(run)
+    require_no_kernel("dg-cg volume", counts())
+    dv = abs(s.compute_volume_2d() - v0) / abs(v0)
+    if (s.iteration != 30 or not dv < DGCG_VOLUME_RTOL
+            or not bool(torch.isfinite(s.fields.elev_2d.data).all())):
+        raise AssertionError(f"dg-cg volume: {s.iteration} steps, the volume "
+                             f"changed by {dv} of itself (bound "
+                             f"{DGCG_VOLUME_RTOL:g})")
+    log(f"[dg-cg volume] tests/test_dgcg.py::test_dgcg_mass_conservation, "
+        f"f64 20x4 closed basin, 30 CN steps in {t:.2f} s: the volume "
+        f"changed by {dv:.3e} of itself < {DGCG_VOLUME_RTOL:g}")
+
+
+def family_solver(device, dtype, family, degree=1, stepper="CrankNicolson",
+                  params=F32_PARAMS, cfl=2.0, nx=NX, ny=NY):
+    """The bench's 2D case (bench.py:39-75: 100 x 50 km, depth 50 m, the
+    Gaussian hump, quadratic drag 2.5e-3, LF 1) through ``FlowSolver2d``
+    in another element family, dt = ``cfl`` hmin / sqrt(g 51) (the
+    semi-implicit CN's ``use_semi_implicit_linearization``); returns the
+    solver and its setup seconds."""
+    def build():
+        mesh = RectangleMesh(nx, ny, LX, LY, device=device, dtype=dtype)
+        s = FlowSolver2d(mesh, 50.0)
+        o = s.options
+        o.element_family = family
+        o.polynomial_degree = degree
+        o.swe_timestepper_type = stepper
+        if stepper == "CrankNicolson":
+            o.swe_timestepper_options.use_semi_implicit_linearization = True
+        o.swe_timestepper_options.solver_parameters = NewtonParameters(
+            **params)
+        o.timestep = cfl * float(mesh.cell_hmin_np.min()) / math.sqrt(
+            9.81 * 51.0)
+        o.quadratic_drag_coefficient = 2.5e-3
+        o.lax_friedrichs_velocity_scaling_factor = 1.0
+        o.no_exports = True
+        s.create_function_spaces()
+        x = s.function_spaces.H_2d.dof_coords()
+        s.assign_initial_conditions(elev=torch.exp(
+            -(((x[..., 0] - LX / 2) / 15e3) ** 2)
+            - ((x[..., 1] - LY / 2) / 15e3) ** 2))
+        return s
+
+    return sync_time(build)
+
+
+def solver_pcgs(s):
+    """The mass PCGs (``solvers/pcg.py::JacobiPCG``) held by the solver's
+    equation and function spaces."""
+    objs = [s.eq_sw, *vars(s.function_spaces).values()]
+    found = {id(v): v for o in objs
+             for v in getattr(o, "__dict__", {}).values()
+             if isinstance(v, JacobiPCG)}
+    return list(found.values())
+
+
+def family_run(tag, s, t_setup, smi, volume_rtol):
+    """1 warm-up + ``FAMILY_STEPS`` steps through ``iterate()`` with the
+    launch counts set to 0 before the warm-up; finite state of unchanged
+    shapes, the volume to ``volume_rtol``, every mass PCG of the solver
+    replayed as a CUDA graph (none solved eagerly); returns the
+    counts."""
+    shapes = {k: tuple(v.shape) for k, v in s._get_state().items()}
+    v0 = s.compute_volume_2d()
+    pcgs = solver_pcgs(s)
+    replays0 = [p.replays for p in pcgs]
+    reset_counts()
+    _, t_warm = sync_time(lambda: iterate_steps(s, 1))
+    t, per = timed_steps(s, FAMILY_STEPS)
+    n = counts()
+    check_state(tag, s, shapes)
+    require_no_kernel(tag, n)
+    replays = [p.replays - r for p, r in zip(pcgs, replays0)]
+    eager = [p.eager_cuda for p in pcgs]
+    if not pcgs or min(replays) < 1 or any(eager):
+        raise AssertionError(f"{tag}: mass PCGs {len(pcgs)}, graph replays "
+                             f"{replays}, eager CUDA solves {eager}")
+    dv = abs(s.compute_volume_2d() - v0) / abs(v0)
+    if not dv <= volume_rtol:
+        raise AssertionError(f"{tag}: the volume changed by {dv} of itself "
+                             f"(bound {volume_rtol})")
+    swe = [p["swe"] for p in per]
+    dofs = sum(v.numel() for v in s._get_state().values())
+    log(f"[{tag}] {s.mesh2d.nc} cells, {dofs} DOF, dt {s.dt:.3f} s, "
+        f"{s.options.swe_timestepper_type}: setup {t_setup:.2f} s, warm-up "
+        f"{t_warm * 1e3:.1f} ms; {FAMILY_STEPS} steps "
+        f"{t / FAMILY_STEPS * 1e3:.2f} ms/step, "
+        f"{dofs * FAMILY_STEPS / t:.4e} DOF*steps/s; launches {n}; Newton "
+        f"iterations {[p.get('newton_iterations') for p in swe]}, FGMRES "
+        f"cycles {[p.get('ksp_cycles') for p in swe]}, final residuals "
+        f"{[p.get('ksp_rel_residual') for p in swe]}; mass PCG graph "
+        f"replays {replays}; volume change {dv:.3e}"
+        f" (bound {volume_rtol:g}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
+    return n
+
+
+def phase_dgcg(smi):
+    """Phase 25b: dg-cg (P1DG velocity x P2 CG elevation) on the bench's
+    320x160 mesh, f32, PressureProjectionPicard under the wave-Schur PC
+    at wave CFL 10, 1 + 3 steps.  (25a runs in phase 21's block.)"""
+    s, t_setup = family_solver(torch.device("cuda"), torch.float32,
+                               "dg-cg", stepper="PressureProjectionPicard",
+                               params=F32_PPP, cfl=10.0)
+    if not s.timestepper.use_schur_pc:
+        raise AssertionError("dg-cg PPP without the wave-Schur PC")
+    return family_run(f"dg-cg PPP {NX}x{NY}", s, t_setup, smi,
+                      VOLUME_RTOL_F32)
+
+
+def phase_hdiv(smi):
+    """Phase 26b: RT1 x P0, RT2 x P1DG and BDM2 x P1DG on the bench's
+    320x160 mesh, f32, the semi-implicit CN at 2 hmin/c, 1 + 3 steps
+    each.  (26a runs in phase 21's block.)"""
+    total = {k: 0 for k in KERNELS}
+    for name, (family, degree) in HDIV_CASES.items():
+        s, t_setup = family_solver(torch.device("cuda"), torch.float32,
+                                   family, degree)
+        n = family_run(f"hdiv {name} {NX}x{NY}", s, t_setup, smi,
+                       VOLUME_RTOL_F32)
+        for k in KERNELS:
+            total[k] += n[k]
+    return total
+
+
+def williamson2_solver(device, dtype, refinement, family="rt-dg",
+                       params=None, days=0.25):
+    """``examples/williamson2/williamson2.py`` written for the port: the
+    icosahedral sphere, rt-dg (RT1 x P0) or bdm-dg, the semi-implicit CN
+    at dt 900 s, the Coriolis frequency and the zonal velocity at the
+    vertices; returns the solver, the analytic elevation (nc, 1) and its
+    amplitude."""
+    from thetis_tpu_torch.mesh.sphere import IcosahedralSphereMesh
+
+    mesh = IcosahedralSphereMesh(R_EARTH, refinement, device=device,
+                                 dtype=dtype)
+    g = 9.81
+    u0 = 2 * np.pi * R_EARTH / (12.0 * 86400.0)
+    s = FlowSolver2d(mesh, torch.as_tensor(2.94e4 / g))
+    o = s.options
+    o.element_family = family
+    o.polynomial_degree = 0
+    o.swe_timestepper_type = "CrankNicolson"
+    o.swe_timestepper_options.use_semi_implicit_linearization = True
+    o.swe_timestepper_options.solver_parameters = NewtonParameters(
+        **(params or dict(ksp_rtol=1e-8, ksp_max_it=96, gmres_restart=24)))
+    o.timestep = 900.0
+    o.simulation_export_time = 86400.0
+    o.simulation_end_time = days * 86400.0
+    o.no_exports = True
+    xyz = mesh.coords_np
+    cent = mesh.cell_midpoints()
+    sin_lat = cent[:, 2] / np.linalg.norm(cent, axis=1)
+    amp = (R_EARTH * OMEGA_EARTH * u0 + 0.5 * u0 ** 2) / g
+    eta0 = (-amp * sin_lat ** 2)[:, None]
+    uvec = (u0 / R_EARTH) * np.stack([-xyz[:, 1], xyz[:, 0],
+                                      np.zeros(mesh.nv)], axis=-1)
+    o.coriolis_frequency = torch.as_tensor(2.0 * OMEGA_EARTH * xyz[:, 2]
+                                           / R_EARTH)
+    s.assign_initial_conditions(elev=torch.as_tensor(eta0),
+                                uv=torch.as_tensor(uvec))
+    return s, eta0, amp
+
+
+def williamson2_l2(s, eta0, amp):
+    area = s.mesh2d.cell_area_np
+    err = s.fields.elev_2d.data[:, 0].double().cpu().numpy() - eta0[:, 0]
+    return math.sqrt(float((area * err ** 2).sum()) / area.sum()) / amp
+
+
+def williamson2_case():
+    """Phase 27a (in :func:`hdiv_cases`' process): the example at its
+    regression size (refinement 3, 0.25 day in 24 steps of 900 s, f64)
+    against its own bound."""
+    reset_counts()
+    (s, eta0, amp), t_setup = sync_time(lambda: williamson2_solver(
+        torch.device("cuda"), torch.float64, 3))
+    s.initialize()
+    v0 = s.compute_volume_2d()
+    _, t = sync_time(s.iterate)
+    require_no_kernel("williamson2", counts())
+    l2 = williamson2_l2(s, eta0, amp)
+    dv = abs(s.compute_volume_2d() - v0) / abs(v0)
+    if s.iteration != 24 or not l2 < W2_BOUND or not dv < 1e-12:
+        raise AssertionError(f"williamson2: {s.iteration} steps, l2 {l2}, "
+                             f"volume change {dv}")
+    log(f"[williamson2] examples/williamson2/williamson2.py at its "
+        f"regression size, f64, refinement 3 ({s.mesh2d.nc} cells), 24 "
+        f"steps of 900 s: setup {t_setup:.2f} s, {t / 24 * 1e3:.1f} "
+        f"ms/step; elevation rel. L2 error {l2:.4f} < {W2_BOUND}; volume "
+        f"change {dv:.2e}; last step {s.timestepper.stats}")
+
+
+def hdiv_standing_wave(device, family, degree, nx, n_per_period, periods,
+                       amp=0.01):
+    """The standing wave of ``tests/test_rtdg.py::test_rtdg_flowsolver``
+    (degree 0) and ``tests/test_rt2.py::test_rt2_facade`` (degree 1)
+    through the port's FlowSolver2d, f64; returns the solver and the
+    initial elevation."""
+    lx, ly, depth = 5e3, 1e3, 100.0
+    period = 2 * lx / math.sqrt(float(physical_constants["g_grav"])
+                                * depth)
+    mesh = RectangleMesh(nx, 2, lx, ly, device=device, dtype=torch.float64)
+    s = FlowSolver2d(mesh, Function(FunctionSpace(mesh, "CG", 1)).assign(
+        depth))
+    o = s.options
+    o.element_family = family
+    o.polynomial_degree = degree
+    o.timestep = period / n_per_period
+    o.swe_timestepper_type = "CrankNicolson"
+    o.no_exports = True
+    s.create_function_spaces()
+    if degree == 0:
+        o.simulation_export_time = period
+        o.simulation_end_time = periods * period - 0.1 * o.timestep
+        mids = torch.as_tensor(mesh.cell_midpoints(), device=device)
+        eta0 = amp * torch.cos(math.pi * mids[:, :1] / lx)
+        s.assign_initial_conditions(elev=eta0, uv=np.asarray([0.0, 0.0]))
+    else:
+        o.simulation_export_time = period / 4
+        o.simulation_end_time = periods * period - 1e-3
+        eta0 = Function(s.function_spaces.H_2d).interpolate(
+            lambda x, y: amp * torch.cos(math.pi / lx * x)).data
+        s.assign_initial_conditions(elev=eta0)
+    return s, eta0
+
+
+def hdiv_cases():
+    """Phases 26a and 27a in a process of its own (``python3
+    chip_smoke.py hdiv_cases``, started in phase 21's block): the
+    reference tests' standing waves at their sizes, f64, against their
+    bounds: ``test_rtdg_flowsolver`` (60x2, 40 steps: volume 1e-6,
+    amplitude 0.05) and ``test_rt2_facade`` for rt-dg and bdm-dg (16x2,
+    half a period: 0.1); then Williamson 2 at its regression size."""
+    phase_device()
+    dev = torch.device("cuda")
+    reset_counts()
+    s, eta0 = hdiv_standing_wave(dev, "rt-dg", 0, 60, 40, 1.0)
+    s.initialize()
+    v0 = s.compute_volume_2d()
+    _, t = sync_time(s.iterate)
+    dv = abs(s.compute_volume_2d() - v0) / abs(v0)
+    rel = float(s.eq_sw.norm_elev(s.fields.elev_2d.data - eta0)) \
+        / math.sqrt(5e3 * 1e3) / 0.01
+    if s.iteration != 40 or not dv < 1e-6 or not rel < 0.05:
+        raise AssertionError(f"rtdg flowsolver: {s.iteration} steps, "
+                             f"volume {dv}, amplitude {rel}")
+    log(f"[hdiv rtdg flowsolver] tests/test_rtdg.py case, f64 60x2, 40 CN "
+        f"steps in {t:.2f} s: volume change {dv:.2e} < 1e-6, amplitude "
+        f"error {rel:.4f} < 0.05")
+    for family in ("rt-dg", "bdm-dg"):
+        s, eta0 = hdiv_standing_wave(dev, family, 1, 16, 64, 0.5)
+        _, t = sync_time(s.iterate)
+        err = float(s.asm.norm_l2(s.fields.elev_2d.data + eta0)) / float(
+            s.asm.norm_l2(eta0))
+        if not err < 0.1 or not bool(torch.isfinite(
+                s.fields.uv_2d.data).all()):
+            raise AssertionError(f"rt2 facade {family}: error {err}")
+        log(f"[hdiv rt2 facade] tests/test_rt2.py case, {family} p = 1, "
+            f"f64 16x2, {s.iteration} CN steps in {t:.2f} s: error "
+            f"{err:.4f} < 0.1")
+    require_no_kernel("hdiv cases", counts())
+    williamson2_case()
+
+
+def write_msh(path, nx, ny):
+    """The bench's rectangle (``RectangleMesh(nx, ny, LX, LY)``'s vertices
+    and cells, in its order) as a gmsh 2.2 file: physical lines 1-4 on
+    the sides (left, right, bottom, top), physical surface 7."""
+    x = np.linspace(0.0, LX, nx + 1)
+    y = np.linspace(0.0, LY, ny + 1)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    i, j = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny),
+                                           indexing="ij"))
+    cells = np.concatenate([
+        np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1)], 1),
+        np.stack([vid(i, j), vid(i + 1, j + 1), vid(i, j + 1)], 1)])
+    lines = ([(vid(0, k), vid(0, k + 1), 1) for k in range(ny)]
+             + [(vid(nx, k), vid(nx, k + 1), 2) for k in range(ny)]
+             + [(vid(k, 0), vid(k + 1, 0), 3) for k in range(nx)]
+             + [(vid(k, ny), vid(k + 1, ny), 4) for k in range(nx)])
+    out = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes",
+           str(len(coords))]
+    out += [f"{n + 1} {float(px)!r} {float(py)!r} 0"
+            for n, (px, py) in enumerate(coords)]
+    out += ["$EndNodes", "$Elements", str(len(lines) + len(cells))]
+    e = 0
+    for a, b, tag in lines:
+        e += 1
+        out.append(f"{e} 1 2 {tag} {tag} {a + 1} {b + 1}")
+    for c in cells:
+        e += 1
+        out.append(f"{e} 2 2 7 1 {c[0] + 1} {c[1] + 1} {c[2] + 1}")
+    out.append("$EndElements")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
+def gmsh_step(device, dtype, nx=NX, ny=NY):
+    """A .msh of the bench's rectangle written here, read onto ``device``
+    by ``mesh/gmsh.py``, then one dg-dg SSPRK33 step of the bench's
+    Gaussian (dt 0.08 hmin/c, an ``elev`` boundary on physical line 2);
+    returns the solver and the read and write seconds."""
+    from thetis_tpu_torch.config import BUILD_DIR
+    from thetis_tpu_torch.mesh.gmsh import Mesh
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"box_{nx}x{ny}.msh")
+    t0 = time.perf_counter()
+    write_msh(path, nx, ny)
+    t_write = time.perf_counter() - t0
+    mesh, t_read = sync_time(lambda: Mesh(path, device=device, dtype=dtype))
+    s = FlowSolver2d(mesh, 50.0)
+    o = s.options
+    o.swe_timestepper_type = "SSPRK33"
+    o.swe_timestepper_options.use_automatic_timestep = False
+    o.timestep = 0.08 * float(mesh.cell_hmin_np.min()) / math.sqrt(
+        9.81 * 51.0)
+    o.no_exports = True
+    s.bnd_functions["shallow_water"] = {2: {"elev": 0.0}}
+    x = torch.as_tensor(mesh.coords_np, device=device)[mesh.cells]
+    s.assign_initial_conditions(elev=torch.exp(
+        -(((x[..., 0] - LX / 2) / 15e3) ** 2)
+        - ((x[..., 1] - LY / 2) / 15e3) ** 2))
+    return s, t_write, t_read
+
+
+def phase_sphere(smi):
+    """Phase 27b: Williamson 2 at refinement 6 (81,920 cells) under rt-dg
+    and bdm-dg, f32, 1 + 3 steps, the volume to 1e-9; 27c: a .msh of the
+    bench's rectangle read onto the card and one dg-dg step.  (27a runs
+    in phase 21's block.)"""
+    dev = torch.device("cuda")
+    total = {k: 0 for k in KERNELS}
+    for family in ("rt-dg", "bdm-dg"):
+        (s, eta0, amp), t_setup = sync_time(lambda: williamson2_solver(
+            dev, torch.float32, W2_REFINEMENT, family, params=F32_PARAMS))
+        n = family_run(f"sphere williamson2 {family} refinement "
+                       f"{W2_REFINEMENT}", s, t_setup, smi,
+                       HDIV_VOLUME_RTOL)
+        log(f"[sphere williamson2 {family}] after {s.iteration} steps: "
+            f"elevation rel. L2 error {williamson2_l2(s, eta0, amp):.4e}")
+        for k in KERNELS:
+            total[k] += n[k]
+    reset_counts()
+    s, t_write, t_read = gmsh_step(dev, torch.float32)
+    ref = RectangleMesh(NX, NY, LX, LY, device=dev, dtype=torch.float32)
+    mesh = s.mesh2d
+    for name in ("cells_np", "facet_marker_np", "facet_cells_np"):
+        if not np.array_equal(getattr(mesh, name), getattr(ref, name)):
+            raise AssertionError(f"gmsh: {name} differs from RectangleMesh")
+    if mesh.boundary_len != ref.boundary_len or set(
+            mesh.cell_markers_np) != {7}:
+        raise AssertionError(f"gmsh: markers {mesh.boundary_len}")
+    v0 = s.compute_volume_2d()
+    _, t = sync_time(lambda: iterate_steps(s, 1))
+    n = counts()
+    check_finite("gmsh", s._get_state())
+    require_no_kernel("gmsh", n)
+    for k in KERNELS:
+        total[k] += n[k]
+    log(f"[gmsh] the bench's {NX}x{NY} rectangle as a gmsh 2.2 file "
+        f"(written in {t_write:.2f} s), read onto the card in {t_read:.2f} s"
+        f": {mesh.nv} vertices, {mesh.nc} cells, markers "
+        f"{mesh.boundary_markers} (the RectangleMesh's tables); one SSPRK33 "
+        f"step in {t * 1e3:.1f} ms, volume change "
+        f"{abs(s.compute_volume_2d() - v0) / v0:.2e}; launches {n}; card: "
+        f"{smi}")
+    return total
+
+
+def phase_model_parity_families():
+    """Phase 21's f64 GPU-against-CPU step of each configuration of phases
+    25-27 at a size the CPU affords, each solved to roundoff: dg-cg PPP
+    and the three H(div) pairs on 20x10, Williamson 2 (rt-dg, bdm-dg) at
+    refinement 3, and the read .msh's SSPRK33 step on 20x10."""
+    small = dict(params=FAMILY_PARITY_PARAMS, nx=NX_FAMILY, ny=NY_FAMILY)
+    cases = {
+        "dg-cg ppp": lambda d: family_solver(
+            d, torch.float64, "dg-cg", stepper="PressureProjectionPicard",
+            cfl=10.0, **small)[0],
+        **{f"hdiv {name}": (lambda d, fam=fam, deg=deg: family_solver(
+            d, torch.float64, fam, deg, **small)[0])
+           for name, (fam, deg) in HDIV_CASES.items()},
+        **{f"williamson2 {fam}": (lambda d, fam=fam: williamson2_solver(
+            d, torch.float64, 3, fam, params=FAMILY_PARITY_PARAMS)[0])
+           for fam in ("rt-dg", "bdm-dg")},
+        "gmsh ssprk33": lambda d: gmsh_step(d, torch.float64, NX_FAMILY,
+                                            NY_FAMILY)[0],
+    }
+    for name, make in cases.items():
+        out, secs = {}, {}
+        for dv in ("cuda", "cpu"):
+            s = make(torch.device(dv))
+            start = {k: v.clone() for k, v in s._get_state().items()}
+            reset_counts()
+            t0 = time.perf_counter()
+            iterate_steps(s, 1)
+            if dv == "cuda":
+                torch.cuda.synchronize()
+                require_no_kernel(f"parity {name}", counts())
+            secs[dv] = time.perf_counter() - t0
+            out[dv] = s._get_state()
+        moved = {k: float((out["cpu"][k] - start[k]).abs().max())
+                 for k in out["cpu"]}
+        errs = compare(f"parity {name}", out["cuda"], out["cpu"],
+                       FAMILY_PARITY_RTOL)
+        log(f"[parity families {name}] f64 one step, GPU {secs['cuda']:.2f} s"
+            f" vs CPU {secs['cpu']:.2f} s: max|diff|/max {errs} <= "
+            f"{FAMILY_PARITY_RTOL:g}: ok (the step moved {moved})")
+
+
+def profile_families():
+    """The profiler's view of one step (the coupled advance) of each
+    full-width case of phases 25-27 after a warm-up step, from a fresh
+    process (``python3 chip_smoke.py profile_families``, started in phase
+    21's block): device kernels and device ms a step, the step's Newton
+    iterations and FGMRES cycles."""
+    phase_device()
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    cases = {
+        "25b dg-cg PPP": lambda: family_solver(
+            dev, f32, "dg-cg", stepper="PressureProjectionPicard",
+            params=F32_PPP, cfl=10.0)[0],
+        **{f"26b {name}": (lambda fam=fam, deg=deg: family_solver(
+            dev, f32, fam, deg)[0]) for name, (fam, deg) in
+           HDIV_CASES.items()},
+        **{f"27b williamson2 {fam}": (lambda fam=fam: williamson2_solver(
+            dev, f32, W2_REFINEMENT, fam, params=F32_PARAMS)[0])
+           for fam in ("rt-dg", "bdm-dg")},
+    }
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    for name, make in cases.items():
+        s = make()
+        timed_steps(s, 1)
+        st = s._get_state()
+        args = (s.simulation_time, st, s._gather_swe_fields(), {},
+                s._gather_bnd("shallow_water"), {})
+        torch.cuda.synchronize()
+        rows = device_rows(lambda: s._advance(*args), host=False)
+        if not rows:
+            raise RuntimeError(f"the profiler saw no device kernel in {name}")
+        tag = "[families profile]"
+        log(f"{tag} {name}, one step's coupled advance: "
+            f"{sum(r[1] for r in rows)} device kernels, device busy "
+            f"{sum(r[0] for r in rows) / 1e3:.3f} ms; the step's solver "
+            f"{s.timestepper.stats}; top by device time:")
+        for us, cnt, key in rows[:4]:
+            log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
+
+
+
 def main():
     name = phase_device()
     smi = card()
@@ -3217,10 +3836,13 @@ def main():
         new[key] = out[0] if isinstance(out, tuple) else out
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     # the morphodynamics, turbine and NH slice, each path's counts set to
-    # 0 just before its timed steps
+    # 0 just before its timed steps; then the element families, the sphere
+    # and gmsh (no hand kernel on these paths: each is checked at 0)
     for key, phase in (("morphodynamics", phase_morphodynamics),
                        ("turbines", phase_turbines),
-                       ("nonhydrostatic", phase_nonhydrostatic)):
+                       ("nonhydrostatic", phase_nonhydrostatic),
+                       ("dg-cg", phase_dgcg), ("hdiv", phase_hdiv),
+                       ("sphere", phase_sphere)):
         t0 = time.perf_counter()
         new[key] = phase(smi)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -3250,7 +3872,10 @@ def main():
                                         new["morphodynamics"][k],
                                     "turbines": new["turbines"][k],
                                     "nonhydrostatic":
-                                        new["nonhydrostatic"][k]},
+                                        new["nonhydrostatic"][k],
+                                    "dg-cg": new["dg-cg"][k],
+                                    "hdiv": new["hdiv"][k],
+                                    "sphere": new["sphere"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3290,5 +3915,13 @@ if __name__ == "__main__":
         solitary_wave_case()
     elif sys.argv[1:] == ["profile_slice9"]:
         profile_slice9()
+    elif sys.argv[1:2] == ["dgcg_wave"] and len(sys.argv) == 3:
+        dgcg_wave_case(sys.argv[2])
+    elif sys.argv[1:] == ["dgcg_volume"]:
+        dgcg_volume_case()
+    elif sys.argv[1:] == ["hdiv_cases"]:
+        hdiv_cases()
+    elif sys.argv[1:] == ["profile_families"]:
+        profile_families()
     else:
         main()

@@ -135,19 +135,22 @@ def test_cn_step_with_separate_old_fields():
 
 
 def test_unported_paths_raise():
-    """What the 2D slice still lacks: the dg-cg family (A8e; its CG P2
-    space is ported) and the H(div) families (A8f) in the model."""
+    """What the 2D model still lacks: the adjoint's entry point (A9) and
+    the HDF5 restart (A10).  Every element family is ported (A8): the
+    dg-cg elevation is the CG P2 space, and each family initializes."""
     from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 
     _, tst, _, _ = build("rect", "bench")
     eq = tst.equation
     assert TFS(eq.mesh, "CG", 2).node_count == eq.mesh.nv + eq.mesh.nf
-    for item, setter in (
-            ("A8e", lambda o: setattr(o, "element_family", "dg-cg")),
-            ("A8f", lambda o: setattr(o, "element_family", "rt-dg"))):
+    for family in ("dg-cg", "rt-dg", "bdm-dg"):
         s = FlowSolver2d(eq.mesh, 50.0)
         s.options.no_exports = True
         s.options.timestep = 1.0
-        setter(s.options)
+        s.options.element_family = family
+        s.initialize()
+    for item, call in (
+            ("A9", lambda s: s.differentiable_forward(["initial_elev"])),
+            ("A10", lambda s: s.load_state(0))):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            s.initialize()
+            call(s)

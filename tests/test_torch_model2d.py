@@ -27,6 +27,7 @@ import thetis_tpu_torch.utils.log as tlog  # noqa: E402
 from thetis_tpu_torch.interop import flowsolver2d_from_reference  # noqa: E402
 from thetis_tpu_torch.model.callback import (  # noqa: E402
     VolumeConservation2DCallback as TVolume)
+from thetis_tpu_torch.mesh.sphere import IcosahedralSphereMesh  # noqa: E402
 from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d  # noqa: E402
 from thetis_tpu_torch.solvers.newton import (  # noqa: E402
     NewtonParameters as TNewtonParameters)
@@ -315,14 +316,11 @@ def test_facade_square_mesh_goes_to_the_card(gen, monkeypatch):
 
 
 def _opts_refused():
-    def family(name):
-        def f(o):
-            o.element_family = name
-        return f
-
-    return {"dg-cg": (family("dg-cg"), "A8e"),
-            "rt-dg": (family("rt-dg"), "A8f"),
-            "bdm-dg": (family("bdm-dg"), "A8f")}
+    """What the 2D model still refuses, with its ROADMAP item: the
+    adjoint's entry point and the HDF5 restart."""
+    return {"differentiable_forward": (
+                lambda s: s.differentiable_forward(["initial_elev"]), "A9"),
+            "load_state": (lambda s: s.load_state(0), "A10")}
 
 
 REFUSED = _opts_refused()
@@ -363,6 +361,13 @@ def _opts_ported():
         o.use_wetting_and_drying = True
         o.use_automatic_wetting_and_drying_alpha = True
 
+    def family(name, degree=None):
+        def f(o):
+            o.element_family = name
+            if degree is not None:
+                o.polynomial_degree = degree
+        return f
+
     def stepper(name, **params):
         def f(o):
             o.swe_timestepper_type = name
@@ -380,7 +385,9 @@ def _opts_ported():
                 "PressureProjectionPicard", ksp_rtol=1e-6, ksp_max_it=60,
                 gmres_restart=30),
             "SteadyState": stepper("SteadyState", snes_max_it=3,
-                                   line_search=True, dense=True)}
+                                   line_search=True, dense=True),
+            "dg-cg": family("dg-cg"), "rt-dg": family("rt-dg"),
+            "bdm-dg": family("bdm-dg"), "sphere": family("rt-dg", 0)}
 
 
 PORTED = _opts_ported()
@@ -404,11 +411,14 @@ def _port_solver(**opts):
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_unported_options_raise(what):
+    """Every element family and mesh of the reference is ported (A8); the
+    entry points of A9 and A10 still raise naming their item."""
     s = _port_solver()
-    set_option, item = REFUSED[what]
-    set_option(s.options)
+    s.options.timestep = 1.0
+    s.initialize()
+    call, item = REFUSED[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        s.initialize()
+        call(s)
 
 
 @pytest.mark.parametrize("what", sorted(PORTED))
@@ -417,11 +427,17 @@ def test_ported_options_step(what):
     through ``iterate()`` moves the state and keeps it finite; parity
     with the reference is in ``test_torch_model2d_tracers.py``,
     ``test_torch_wetting_drying.py``, ``test_torch_steppers2d.py``,
-    ``test_torch_sediment.py``, ``test_torch_turbines.py`` and
-    ``test_torch_nh.py``."""
-    _, tm = meshes("rect")
-    s = FlowSolver2d(tm, 20.0 + 5.0 * torch.as_tensor(tm.coords_np[:, 1])
-                     / 5e3)
+    ``test_torch_sediment.py``, ``test_torch_turbines.py``,
+    ``test_torch_nh.py``, ``test_torch_dgcg.py``, ``test_torch_hdiv.py``
+    and ``test_torch_sphere.py``."""
+    if what == "sphere":
+        # an rt-dg (RT1 x P0) hump on a refinement-1 Earth
+        tm = IcosahedralSphereMesh(6371220.0, 1, device="cpu")
+        s = FlowSolver2d(tm, 1000.0)
+    else:
+        _, tm = meshes("rect")
+        s = FlowSolver2d(tm, 20.0 + 5.0 * torch.as_tensor(
+            tm.coords_np[:, 1]) / 5e3)
     o = s.options
     o.no_exports = True
     o.timestep = 60.0
@@ -430,10 +446,19 @@ def test_ported_options_step(what):
     PORTED[what](o)
     s.bnd_functions["shallow_water"][1] = {"elev": 0.05}
     s.bnd_functions["tracer"][1] = {"value": 2.0}
-    x = torch.as_tensor(tm.coords_np)[tm.cells]
+    s.create_function_spaces()
+    if what == "sphere":
+        z = torch.as_tensor(tm.cell_midpoints()[:, 2])[:, None] / 6371220.0
+        elev = 0.3 * torch.exp(-((z - 0.5) / 0.2) ** 2)
+        o.coriolis_frequency = torch.as_tensor(1.46e-4 * tm.coords_np[:, 2]
+                                               / 6371220.0)
+    else:
+        # the elevation space's nodes: P1DG, P2 CG (dg-cg) or P1DG at
+        # degree-5 quadrature (RT2 / BDM2 x P1DG)
+        x = s.function_spaces.H_2d.dof_coords()
+        elev = 0.3 * torch.exp(-((x[..., 0] - 5e3) / 2e3) ** 2)
     kw = START.get(what, {})
-    s.assign_initial_conditions(
-        elev=0.3 * torch.exp(-((x[..., 0] - 5e3) / 2e3) ** 2), **kw)
+    s.assign_initial_conditions(elev=elev, **kw)
     start = {k: v.clone() for k, v in s._get_state().items()}
     s.iterate()
     assert s.iteration == 1
@@ -443,6 +468,9 @@ def test_ported_options_step(what):
     assert float((s._get_state()[moved] - start[moved]).abs().max()) > 1e-6
     if what == "turbines":
         assert [n for n, _, _ in s.eq_sw.terms].count("TurbineDragTerm") == 1
+    if what in ("dg-cg", "rt-dg", "bdm-dg", "sphere"):
+        assert not getattr(s.timestepper, "assembled_solve", False)
+        assert s.eq_sw.mesh is tm
     if what.startswith("wetting_drying"):
         assert s.eq_sw.depth.use_wetting_and_drying
         assert not getattr(s.timestepper, "assembled_solve", False)

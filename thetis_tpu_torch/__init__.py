@@ -31,8 +31,10 @@ import lines changed (the farm options and ``TurbineFunctionalCallback``
 from ``thetis_tpu_torch.model.turbines``).  The facade's mesh generators put the mesh on the
 CUDA device, in float64, unless ``device=``/``dtype=`` say otherwise;
 without a card they raise unless the caller asks for the CPU with
-``device="cpu"``.  The rest of the reference's ``api.py`` waits for
-ROADMAP A10.
+``device="cpu"``; so do the sphere meshes and the gmsh reader, which a
+script imports from ``thetis_tpu_torch.mesh.sphere`` and
+``thetis_tpu_torch.mesh.gmsh`` as it does from the reference.  The rest
+of the reference's ``api.py`` waits for ROADMAP A10.
 """
 import torch
 
@@ -40,6 +42,7 @@ from .config import physical_constants
 from .equations.limiter import VertexBasedP1DGLimiter
 from .fem.functionspace import Function, FunctionSpace, SpatialCoordinate
 from .mesh import generation as _generation
+from .mesh.mesh2d import default_device
 from .model import flowsolver2d as solver2d
 from .model.flowsolver2d import FlowSolver2d
 from .model.options import TracerFieldOptions
@@ -58,22 +61,13 @@ exp = torch.exp
 pi = float(torch.pi)
 
 
-def _device(device):
-    if device is not None:
-        return device
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the facade's meshes go to the card unless "
-            'asked otherwise; pass device="cpu" to run on the CPU')
-    return "cuda"
-
-
 def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
                   name="rectangle", *, device=None, dtype=torch.float64):
     """:func:`thetis_tpu_torch.mesh.generation.RectangleMesh` with the
     facade's default device and dtype."""
     return _generation.RectangleMesh(nx, ny, lx, ly, originX, originY, name,
-                                     device=_device(device), dtype=dtype)
+                                     device=default_device(device),
+                                     dtype=dtype)
 
 
 def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
@@ -82,14 +76,16 @@ def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
     """:func:`thetis_tpu_torch.mesh.generation.PeriodicRectangleMesh` with
     the facade's default device and dtype."""
     return _generation.PeriodicRectangleMesh(
-        nx, ny, lx, ly, direction, name, device=_device(device), dtype=dtype)
+        nx, ny, lx, ly, direction, name, device=default_device(device),
+        dtype=dtype)
 
 
 def SquareMesh(nx, ny, l, name="square", *, device=None,
                dtype=torch.float64):
     """:func:`thetis_tpu_torch.mesh.generation.SquareMesh` with the
     facade's default device and dtype."""
-    return _generation.SquareMesh(nx, ny, l, name, device=_device(device),
+    return _generation.SquareMesh(nx, ny, l, name,
+                                  device=default_device(device),
                                   dtype=dtype)
 
 
@@ -97,5 +93,6 @@ def UnitSquareMesh(nx, ny, name="unitsquare", *, device=None,
                    dtype=torch.float64):
     """:func:`thetis_tpu_torch.mesh.generation.UnitSquareMesh` with the
     facade's default device and dtype."""
-    return _generation.UnitSquareMesh(nx, ny, name, device=_device(device),
+    return _generation.UnitSquareMesh(nx, ny, name,
+                                      device=default_device(device),
                                       dtype=dtype)

@@ -673,9 +673,16 @@ class ShallowWaterEquations(EquationBase):
     def mass_inverse(self, r):
         """Exact block inverse (only a preconditioner under
         wetting-and-drying)."""
-        asm = self.asm
-        return swe_state(asm.mass_inverse(r["uv"]),
-                         asm.mass_inverse(r["elev"]))
+        return swe_state(self.mass_inverse_uv(r["uv"]),
+                         self.mass_inverse_elev(r["elev"]))
+
+    def mass_inverse_uv(self, r_uv):
+        """The velocity block of :meth:`mass_inverse`."""
+        return self.asm.mass_inverse(r_uv)
+
+    def mass_inverse_elev(self, r_elev):
+        """The elevation block of :meth:`mass_inverse`."""
+        return self.asm.mass_inverse(r_elev)
 
     def assemble_operator_blocks(self, u_lag, fields, bnd_values, coeff,
                                  return_residual=False):

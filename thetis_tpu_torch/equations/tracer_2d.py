@@ -22,6 +22,7 @@ advective velocity (ref L105, L151).
 import numpy as np
 import torch
 
+from ..solvers.pcg import JacobiPCG
 from .base import Bucket, EquationBase, facet_quad_value, facet_quad_value_2s
 
 __all__ = ["TracerEquation2D", "TracerEquation2DCG"]
@@ -378,6 +379,8 @@ class TracerEquation2DCG(TracerEquation2D):
                    * np.asarray(mesh.detJ_np)[:, None]).ravel())
         self._lumped = asm.as_tensor(lumped)
         self._cells_flat = self.cells.reshape(-1)
+        self._cg_mass_pcg = JacobiPCG(self._cg_mass_apply, self._lumped,
+                                      self.PCG_ITERATIONS)
 
     # -- CG assembly helpers --------------------------------------------
     def _to_cells(self, sol):
@@ -412,24 +415,6 @@ class TracerEquation2DCG(TracerEquation2D):
 
     def _cg_mass_apply(self, v):
         return self._scatter(self.asm.mass_apply(v[self.cells]))
-
-    def _cg_mass_pcg(self, r):
-        tiny = torch.finfo(r.dtype).tiny
-        Ml = self._lumped
-        x = r / Ml
-        res = r - self._cg_mass_apply(x)
-        p = res / Ml
-        rz = (res * p).sum()
-        for _ in range(self.PCG_ITERATIONS):
-            Ap = self._cg_mass_apply(p)
-            alpha = rz / torch.clamp_min((p * Ap).sum(), tiny)
-            x = x + alpha * p
-            res = res - alpha * Ap
-            z = res / Ml
-            rz_new = (res * z).sum()
-            p = z + (rz_new / torch.clamp_min(rz, tiny)) * p
-            rz = rz_new
-        return x
 
     def mass_term(self, solution):
         return {l: self._cg_mass_apply(solution[l]) for l in self.labels}

@@ -13,7 +13,7 @@ __all__ = ["state_from_numpy", "state_to_numpy", "fields_from_numpy",
            "fields_to_numpy", "bathymetry_from_numpy", "bathymetry_to_numpy",
            "state3d_from_numpy", "state3d_to_numpy", "state3d_keys",
            "flowsolver3d_from_numpy", "flowsolver2d_from_reference",
-           "wd_alpha_from_numpy"]
+           "wd_alpha_from_numpy", "sphere_mesh_from_reference"]
 
 _STATE_KEYS = ("elev", "uv")
 #: the 3D step's state dict (``FlowSolver._get_state``) under the default
@@ -62,9 +62,12 @@ def _to_numpy(v):
 
 
 def state_from_numpy(d, device, dtype):
-    """``{"uv": (nc,3,2), "elev": (nc,3)}`` numpy arrays -> tensors.  A
-    tracer system's state (``{label: (nc, 3) or (nv,)}``) is
-    ``fields_from_numpy``'s."""
+    """The SWE state ``{"uv", "elev"}`` as numpy arrays -> tensors, in the
+    element family's layout: ``(nc,3,2)`` / ``(nc,3)`` for dg-dg, a CG2
+    elevation ``(nv + nf,)`` for dg-cg, facet dofs ``(nf,)`` (RT1) or
+    ``(nf, 2)`` (BDM1) with ``(nc, 1)`` for the p = 0 H(div) pairs, flat
+    RT2 / BDM2 dofs with ``(nc, 3)`` for p = 1.  A tracer system's state
+    (``{label: (nc, 3) or (nv,)}``) is ``fields_from_numpy``'s."""
     if sorted(d) != list(_STATE_KEYS):
         raise KeyError(f"swe state needs keys {_STATE_KEYS}, got {sorted(d)}")
     return {k: _to_tensor(v, device, dtype) for k, v in d.items()}
@@ -94,6 +97,17 @@ def bathymetry_from_numpy(b, device, dtype):
 
 def bathymetry_to_numpy(b):
     return float(b) if np.isscalar(b) else _to_numpy(b)
+
+
+def sphere_mesh_from_reference(ref, device, dtype):
+    """The port's :class:`~.mesh.sphere.SphereMesh` with the reference
+    sphere's vertices, (already outward-oriented) cells, radius and name
+    on ``device`` in ``dtype``: the same tables."""
+    from .mesh.sphere import SphereMesh
+
+    return SphereMesh(np.asarray(ref.coords_np), np.asarray(ref.cells_np),
+                      radius=ref.radius, name=ref.name, device=device,
+                      dtype=dtype)
 
 
 def wd_alpha_from_numpy(alpha, mesh2d):

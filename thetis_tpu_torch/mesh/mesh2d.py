@@ -22,7 +22,20 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["Mesh2d"]
+__all__ = ["Mesh2d", "default_device"]
+
+def default_device(device):
+    """The device of a mesh built through the facade (the user-facing
+    constructors): ``device`` when given, else the card; without a card
+    this raises rather than fall back to the CPU quietly."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the facade's meshes go to the card unless "
+            'asked otherwise; pass device="cpu" to run on the CPU')
+    return "cuda"
+
 
 _DEVICE_TABLES = (
     "coords", "cells", "detJ", "Jinv", "cell_area", "facet_cells",
@@ -260,6 +273,10 @@ class Mesh2d:
         for m in self.boundary_markers:
             sel = self.facet_marker_np == m
             self.boundary_len[m] = float(self.facet_len_np[sel].sum())
+
+    def cell_midpoints(self):
+        """(nc, 2) host cell centroids."""
+        return self.coords_np[self.cells_np].mean(axis=1)
 
     def __repr__(self):
         return (

@@ -37,13 +37,24 @@ sources and the tracer Picard sweeps), the suspended sediment (with the
 limiter) and the Exner bed; ``tracer_only`` skips the SWE.  Continuous
 and discrete tidal turbine farms add their drag to the SWE.
 
+Element families (``options.element_family``): ``dg-dg``; ``dg-cg``
+(P1DG velocity x P2 CG elevation, ``equations/shallowwater_dgcg.py``);
+``rt-dg`` and ``bdm-dg``, the H(div) velocities with DG elevation: RT1 /
+BDM1 x P0 at ``polynomial_degree = 0`` (``equations/shallowwater_rtdg.py``),
+RT2 / BDM2 x P1DG at 1, the reference's default, on planar meshes
+(``equations/shallowwater_rt2.py``).  A
+:class:`~thetis_tpu_torch.mesh.sphere.SphereMesh` takes the p = 0 H(div)
+pairs, on a namespace of quadrature tabulations in place of the planar
+``DGAssembler``.  The H(div) families run the plain SWE (no tracers,
+sediment, NH or farms), as in the reference; none of these families is
+on the assembled (ring-kernel) path.
+
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: the ``dg-cg`` (A8e) and ``rt-dg``/``bdm-dg`` (A8f) families and
-sphere meshes (A8g); ``differentiable_forward`` (A9); exporters
-(``no_exports=False``), the diagnostic HDF5 series and ``load_state``
-(A10).
+item: ``differentiable_forward`` (A9); exporters (``no_exports=False``),
+the diagnostic HDF5 series and ``load_state`` (A10).
 """
 import time as time_mod
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -54,9 +65,17 @@ from ..equations.limiter import VertexBasedP1DGLimiter
 from ..equations.nh import DepthIntegratedPoissonSolver, FreeSurfaceEquation2D
 from ..equations.sediment_2d import SedimentEquation2D
 from ..equations.shallowwater_2d import ShallowWaterEquations
+from ..equations.shallowwater_dgcg import ShallowWaterEquationsDGCG
+from ..equations.shallowwater_rt2 import ShallowWaterEquationsRT2DG
+from ..equations.shallowwater_rtdg import ShallowWaterEquationsRTDG
 from ..equations.tracer_2d import TracerEquation2D, TracerEquation2DCG
 from ..fem.assembly import DGAssembler
+from ..fem.bdm import BDMSpace
+from ..fem.bdm2 import BDM2Space
 from ..fem.functionspace import Function, FunctionSpace
+from ..fem.reference_element import ELEMENTS
+from ..fem.rt import RTSpace
+from ..fem.rt2 import NodalHdivSpace, RT2Space
 from ..solvers.newton import NewtonParameters
 from ..timeintegration.rungekutta import SCHEMES
 from ..timeintegration.steppers import CrankNicolson, get_stepper
@@ -125,33 +144,67 @@ class FlowSolver2d:
         return self._tensor(v)
 
     def _check_options(self):
-        """Raise for every option whose code path is not ported."""
+        """The reference's checks of the element family (ref
+        ``solver2d.py:307-352``)."""
         o = self.options
         family = o.element_family
-        items = {"dg-cg": "A8e", "rt-dg": "A8f", "bdm-dg": "A8f"}
-        if family in items:
-            raise _unported(f"the {family} element family", items[family])
-        if family != "dg-dg":
+        if family not in ("dg-dg", "dg-cg", "rt-dg", "bdm-dg"):
             raise ValueError(f"unknown element family {family!r}")
-        if getattr(self.mesh2d, "geometric_dimension", 2) == 3:
-            raise _unported("manifold (sphere) meshes", "A8g")
+        manifold = getattr(self.mesh2d, "geometric_dimension", 2) == 3
+        if manifold and family not in ("rt-dg", "bdm-dg"):
+            raise ValueError("manifold (sphere) meshes require an H(div) "
+                             "element family (ref solver2d.py:314-318)")
+        p = o.polynomial_degree
+        if family in ("rt-dg", "bdm-dg") and not (
+                p == 0 or (p == 1 and not manifold)):
+            raise ValueError(
+                f"{family} implements p = 0 (H(div) x P0) and, on planar "
+                "meshes, p = 1 (RT2/BDM2 x P1DG): set "
+                "options.polynomial_degree accordingly")
 
     # ------------------------------------------------------------------
     def create_function_spaces(self):
-        """ref ``solver2d.py:307-352``; the dg-dg family."""
+        """ref ``solver2d.py:307-352``: the dg-dg, dg-cg, rt-dg and
+        bdm-dg families."""
         self._check_options()
         mesh = self.mesh2d
+        family = self.options.element_family
         p = self.options.polynomial_degree
         self.function_spaces = type("FS", (), {})()
         fs = self.function_spaces
         fs.P0_2d = FunctionSpace(mesh, "DG", 0)
         fs.P1_2d = FunctionSpace(mesh, "CG", 1)
         fs.P1DG_2d = FunctionSpace(mesh, "DG", 1)
-        fs.U_2d = FunctionSpace(mesh, "DG", p, dim=2)
-        fs.H_2d = FunctionSpace(mesh, "DG", p)
+        if family in ("rt-dg", "bdm-dg") and p == 1:
+            # RT2/BDM2 x P1DG (ref solver2d.py:329-336 builds U =
+            # RT/BDM(p+1), H = DG(p)); the basis products are quartic:
+            # degree-5 quadrature
+            fs.H_2d = FunctionSpace(mesh, "DG", 1, quad_degree=5)
+            self.asm = DGAssembler(mesh, fs.H_2d)
+            fs.U_2d = (RT2Space if family == "rt-dg" else BDM2Space)(
+                mesh, self.asm)
+        elif family in ("rt-dg", "bdm-dg"):
+            if getattr(mesh, "geometric_dimension", 2) == 3:
+                # a sphere has no global planar chart, so the planar
+                # DGAssembler cannot be built; the H(div) spaces and the
+                # RTDG equations only read its quadrature tabulations
+                self.asm = SimpleNamespace(space=SimpleNamespace(
+                    _tab_np=ELEMENTS[("DG", 1)].tabulate(3)))
+            else:
+                self.asm = DGAssembler(mesh, FunctionSpace(mesh, "DG", 1))
+            fs.U_2d = (RTSpace if family == "rt-dg" else BDMSpace)(
+                mesh, self.asm)
+            fs.H_2d = FunctionSpace(mesh, "DG", 0)
+        else:
+            fs.U_2d = FunctionSpace(mesh, "DG", p, dim=2)
+            # dg-cg: P1DG velocity x P2 CG elevation (ref
+            # solver2d.py:318-321); the assembly context is the degree-p
+            # DG space, the CG elevation has its own tabulations
+            fs.H_2d = (FunctionSpace(mesh, "CG", p + 1)
+                       if family == "dg-cg" else FunctionSpace(mesh, "DG", p))
+            self.asm = DGAssembler(mesh, FunctionSpace(mesh, "DG", p))
         fs.Q_2d = (fs.P1_2d if self.options.tracer_element_family == "cg"
                    else fs.P1DG_2d)
-        self.asm = DGAssembler(mesh, FunctionSpace(mesh, "DG", p))
         self._functions_created = False
 
     def create_fields(self):
@@ -240,12 +293,19 @@ class FlowSolver2d:
                      f"(min {alpha_v.min():.2f} max {alpha_v.max():.2f})")
 
     def create_equations(self):
-        self._check_options()
         if not self._functions_created:
             self.create_fields()
         o = self.options
         self.set_wetting_and_drying_alpha()
         bathy = self.fields.bathymetry_2d.data
+        hdiv = o.element_family in ("rt-dg", "bdm-dg")
+        if hdiv and (o.tidal_turbine_farms or o.discrete_tidal_turbine_farms):
+            raise ValueError("tidal farms are not implemented for the H(div) "
+                             "families")
+        if hdiv and (self.solve_nh or self.solve_tracer or self.solve_sediment
+                     or self.solve_exner):
+            raise ValueError("rt-dg/bdm-dg currently support the plain "
+                             "shallow-water system")
         # tidal turbine farms (ref solver2d.py:462-485)
         def farms(by_subdomain):
             for subdomain, farm_opts in (by_subdomain or {}).items():
@@ -260,12 +320,24 @@ class FlowSolver2d:
              for fo, mask in farms(o.tidal_turbine_farms)]
             + [DiscreteTidalTurbineFarm(self.asm, fo, cell_mask=mask)
                for fo, mask in farms(o.discrete_tidal_turbine_farms)])
-        self.eq_sw = ShallowWaterEquations(
-            self.mesh2d, self.asm, o, bathymetry=bathy,
-            bnd_conditions=self.bnd_functions["shallow_water"],
-            tidal_farms=self.tidal_farms,
-        )
-        self.depth = self.eq_sw.depth
+        bnd = self.bnd_functions["shallow_water"]
+        if o.element_family == "dg-cg":
+            self.eq_sw = ShallowWaterEquationsDGCG(
+                self.mesh2d, self.asm, self.function_spaces.H_2d, o,
+                bathymetry=bathy, bnd_conditions=bnd,
+                tidal_farms=self.tidal_farms)
+        elif hdiv:
+            U_2d = self.function_spaces.U_2d
+            cls = (ShallowWaterEquationsRT2DG
+                   if isinstance(U_2d, NodalHdivSpace)
+                   else ShallowWaterEquationsRTDG)
+            self.eq_sw = cls(self.mesh2d, self.asm, U_2d, o,
+                             bathymetry=bathy, bnd_conditions=bnd)
+        else:
+            self.eq_sw = ShallowWaterEquations(
+                self.mesh2d, self.asm, o, bathymetry=bathy,
+                bnd_conditions=bnd, tidal_farms=self.tidal_farms)
+        self.depth = getattr(self.eq_sw, "depth", None)
         if self.solve_nh:
             nho = o.nh_model_options
             if bathy.dim() != 1:
@@ -423,7 +495,6 @@ class FlowSolver2d:
         """ref ``solver2d.py:651-702``."""
         if not self._equations_created:
             self.create_equations()
-        self._check_options()
         self.set_time_step()
         o = self.options
         sp = o.swe_timestepper_options
@@ -831,6 +902,10 @@ class FlowSolver2d:
                     self.function_spaces.Q_2d, value)
 
     def _interp_to(self, space, value):
+        if space.family in ("RT", "BDM"):
+            v = value.data if isinstance(value, Function) else value
+            return space.project_vector(np.asarray(v) if isinstance(
+                v, Constant) else v)
         shape = space.dof_shape()
         if isinstance(value, Function):
             src = value
@@ -856,9 +931,22 @@ class FlowSolver2d:
         self.callbacks.add(callback, eval_interval)
 
     def compute_volume_2d(self):
+        """Total water volume (ref ``solver2d.py:1103-1115``): a host sum
+        of the cell means for the p = 0 H(div) pairs, the elevation's
+        integral plus the bathymetry's otherwise (a CG2 elevation through
+        its own tabulations)."""
+        eq = self.eq_sw
         eta = self.fields.elev_2d.data
-        return (float(self.asm.integrate(eta))
-                + float(self.asm.integrate_cellq(self.eq_sw.bathy_q)))
+        if isinstance(eq, ShallowWaterEquationsRTDG):
+            area = self.mesh2d.cell_area_np
+            return float((area * eta[:, 0].detach().cpu().numpy()).sum()
+                         + (area * eq.bathy_c.detach().cpu().numpy()).sum())
+        if isinstance(eq, ShallowWaterEquationsDGCG):
+            eta_int = float(self.asm.integrate_cellq(
+                eq.eta_cell_values(eta)))
+        else:
+            eta_int = float(self.asm.integrate(eta))
+        return eta_int + float(self.asm.integrate_cellq(eq.bathy_q))
 
     def compute_tracer_mass(self, label):
         """Depth-integrated tracer mass (ref ``solver2d.py:1116-1120``)."""
@@ -917,8 +1005,15 @@ class FlowSolver2d:
 
     def print_state(self, cputime, print_header=False):
         """ref ``solver2d.py:923-971``."""
-        norm_eta = float(self.asm.norm_l2(self.fields.elev_2d.data))
-        norm_uv = float(self.asm.norm_l2(self.fields.uv_2d.data))
+        eq = self.eq_sw
+        eta, uv = self.fields.elev_2d.data, self.fields.uv_2d.data
+        if self.options.element_family in ("rt-dg", "bdm-dg"):
+            norm_eta, norm_uv = eq.norm_elev(eta), eq.norm_uv(uv)
+        elif isinstance(eq, ShallowWaterEquationsDGCG):
+            norm_eta, norm_uv = eq.norm_elev(eta), self.asm.norm_l2(uv)
+        else:
+            norm_eta, norm_uv = self.asm.norm_l2(eta), self.asm.norm_l2(uv)
+        norm_eta, norm_uv = float(norm_eta), float(norm_uv)
         line = (
             "{iexp:5d} {i:5d} T={t:10.2f} eta norm: {e:10.4f} "
             "u norm: {u:10.4f} {cpu:5.2f}"

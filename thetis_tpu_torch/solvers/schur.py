@@ -11,13 +11,21 @@ block elimination with the elevation Schur complement
 
     S = M_eta - theta^2 dt^2 D M_u^{-1} G
 
-kept matrix-free (tangent evaluations of the residual, ``torch.func.jvp``
-at the linearization state) and inverted with a fixed-iteration CG
-preconditioned by the elevation mass inverse: no host sync per
-application.  The ``preconditioner='schur'`` option of the Newton
-CrankNicolson builds one per step.
+kept matrix-free and inverted with a fixed-iteration CG preconditioned
+by the elevation mass inverse: no host sync per application.  The
+tangents of the residual at the linearization state are linearized once,
+when the preconditioner is built (the Newton solver's reverse-over-reverse
+map: each product is one backward pass of a stored graph), and the mass
+inverses are taken a field at a time (``mass_inverse_uv`` /
+``mass_inverse_elev``), so no application pays for the other field's
+inverse (with a CG elevation that is a 30-iteration PCG).  The
+``preconditioner='schur'`` option of the Newton CrankNicolson builds one
+per step; PressureProjectionPicard one per Picard sweep on a CG
+elevation.
 """
 import torch
+
+from .newton import _tangent_map
 
 __all__ = ["WaveEquationSchurPC"]
 
@@ -38,7 +46,7 @@ class WaveEquationSchurPC:
     ``precond`` to :func:`~thetis_tpu_torch.solvers.newton.newton_solve`.
 
     :arg eq: a ShallowWaterEquations-like object exposing
-        ``residual/mass_term/mass_inverse`` and the
+        ``residual/mass_term/mass_inverse_uv/mass_inverse_elev`` and the
         ExternalPressureGradientTerm / HUDivTerm term names
     :arg lin_state: solution dict to linearise about
     :arg inner_iterations: CG iteration count for the S solve
@@ -65,22 +73,19 @@ class WaveEquationSchurPC:
             return eq.mass_term({"uv": uv0, "elev": e})["elev"]
 
         def tangent(f, x0):
-            return lambda v: torch.func.jvp(f, (x0,), (v,))[1]
+            jv = _tangent_map(lambda d: {"y": f(d["x"])}, {"x": x0})
+            return lambda v: jv({"x": v})["y"]
 
         self.G = tangent(epg_of_eta, eta0)
         self.D = tangent(hudiv_of_uv, uv0)
         self.Me = tangent(mass_eta, eta0)
-        self._zero_uv = torch.zeros_like(uv0)
-        self._zero_eta = torch.zeros_like(eta0)
 
     # -- block helpers ---------------------------------------------------
     def _mu_inv(self, r_u):
-        return self.eq.mass_inverse(
-            {"uv": r_u, "elev": self._zero_eta})["uv"]
+        return self.eq.mass_inverse_uv(r_u)
 
     def _me_inv(self, r_e):
-        return self.eq.mass_inverse(
-            {"uv": self._zero_uv, "elev": r_e})["elev"]
+        return self.eq.mass_inverse_elev(r_e)
 
     def _schur_apply(self, v):
         """S v = M_eta v - (theta dt)^2 D M_u^-1 G v."""

@@ -546,12 +546,10 @@ class PressureProjectionPicard(TimeIntegrator):
                 return {"uv": mus - m_old["uv"] - th * dt * r
                         - (1 - th) * dt * r_mom_old}
 
-            zero_e = torch.zeros_like(lag["elev"])
             st = {}
             u_star = newton_solve(
                 F_mom, {"uv": lag["uv"]},
-                precond=lambda r: {"uv": eq.mass_inverse(
-                    {"uv": r["uv"], "elev": zero_e})["uv"]},
+                precond=lambda r: {"uv": eq.mass_inverse_uv(r["uv"])},
                 params=self.params_mom, stats=st)["uv"]
             _add_stats(stats, st)
 
