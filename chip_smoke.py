@@ -53,7 +53,13 @@ PyTorch version:
   icosahedral sphere (Williamson 2) and a gmsh file, each at its
   reference test's or example's size and at the bench's width; none of
   these paths runs a hand kernel (the assembled ring solve is dg-dg
-  only), and each is checked at 0 launches.
+  only), and each is checked at 0 launches;
+* the adjoint: the gradient of a functional of the bench's CN run
+  through ``differentiable_forward``, whose backward runs the ring
+  matvec kernel again (the adjoint ring solves on the transposed blocks
+  and the block-Jacobi kernel on the transposed diagonal), the channel
+  inversion and tidal-farm examples, and gradients through the mass
+  PCGs' CUDA graphs.
 
 Phases, each printing its lines:
 
@@ -200,6 +206,26 @@ Phases, each printing its lines:
     with the profiler's view of one step of each full-width run
     (``python3 chip_smoke.py profile_families``).
 
+28. the adjoint (``FlowSolver2d.differentiable_forward``): (a) the
+    bench's 2D CN (320x160, f32) under a gradient of J = the domain
+    integral of u_x at the end plus the summed L2 norm of the elevation,
+    with respect to the drag field and the initial elevation, over 4
+    steps: the forward and the backward each with its device ms, device
+    kernels, wall time and ring_mv / block_diag_mv launches (the
+    backward's ring_mv > 0: the adjoint ring solves and the x-bar
+    matvecs), and the peak memory of an 8-step gradient stored and
+    checkpointed (chunk 2); after phase 21's block, the f64 checks: (b)
+    the full-width gradient with the kernels against the plain versions
+    (1e-9 of max) with its Taylor rate (> 1.9), and the 40x20 gradient on
+    the card against the CPU's (1e-9); (c) examples/channel_inversion at
+    its regression size in a process of its own (``python3 chip_smoke.py
+    channel_inversion``) against its checks (J1 < 0.1 J0, the recovered
+    Manning nearer the truth than the first guess); (d) Taylor rates
+    through one explicit dg-cg step and one RT1 CN step at the bench's
+    width (every mass PCG replaying its graph in the backward, none
+    solving eagerly) and through examples/tidalfarm's density at its
+    regression size.
+
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -208,6 +234,8 @@ failed check raises, so the script exits non-zero and prints no result;
 without a CUDA device it exits 1 at once.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
+import contextlib
+import gc
 import json
 import math
 import os
@@ -3764,6 +3792,415 @@ def profile_families():
 
 
 
+# -- phase 28: the adjoint ------------------------------------------------
+#: 28a's steps (the gradient's timed run) and the memory comparison's
+ADJ_STEPS, ADJ_MEM_STEPS = 4, 8
+#: the f64 checks' solve: tight enough that a Taylor remainder is not the
+#: Krylov tolerance's noise
+F64_ADJ = dict(ksp_rtol=1e-11, ksp_max_it=480, gmres_restart=24)
+#: f64 gradient, kernels against plain versions and GPU against CPU
+ADJ_RTOL = 1e-9
+#: examples/channel_inversion/inverse_problem.py at its regression size
+CHANNEL = dict(lx=20e3, ly=2e3, nx=32, ny=4, true=0.05, guess=0.02,
+               steps=20, maxiter=8, x=[2.5e3, 7.5e3, 12.5e3, 17.5e3],
+               y=[1e3] * 4)
+
+
+def adjoint_forward(s, n, checkpoint=False):
+    """Phase 28's functional: J = the domain integral of u_x at the end
+    plus the L2 norm of the elevation summed over the steps (times dt),
+    as a function of the drag field and the initial elevation."""
+    asm = s.asm
+    return s.differentiable_forward(
+        ["quadratic_drag_coefficient", "initial_elev"],
+        terminal_functional=lambda st: asm.integrate(st["uv"][..., 0]),
+        step_functional=lambda st, f, t: asm.norm_l2(st["elev"]),
+        n_steps=n, checkpoint=checkpoint)
+
+
+def adjoint_controls(s):
+    m = s.mesh2d
+    return (torch.full((m.nv,), 2.5e-3, dtype=m.dtype, device=m.device),
+            s.fields.elev_2d.data.clone())
+
+
+def adjoint_grad(fwd, controls):
+    """``(J, gradients)`` at detached copies of ``controls``."""
+    xs = [c.detach().clone().requires_grad_(True) for c in controls]
+    J = fwd(*xs)
+    return J.detach(), torch.autograd.grad(J, xs)
+
+
+def tight_cn(s, params=F64_ADJ):
+    """The solver's semi-implicit CN solved to ``params``."""
+    p = s.timestepper.params
+    for k, v in params.items():
+        setattr(p, k, v)
+    return s
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The ring matvec and block-Jacobi wrappers routed to their plain
+    versions on the card, for 28b's comparison only."""
+    import thetis_tpu_torch.solvers.assembled as asm_mod
+
+    saved = (ringmv.ring_mv, asm_mod.ring_mv, asm_mod.block_diag_mv)
+    ringmv.ring_mv = asm_mod.ring_mv = ringmv.ring_mv_reference
+    asm_mod.block_diag_mv = ringmv.block_diag_mv_reference
+    try:
+        yield
+    finally:
+        ringmv.ring_mv, asm_mod.ring_mv, asm_mod.block_diag_mv = saved
+
+
+def max_rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def phase_adjoint(smi):
+    """Phase 28a: the bench's 2D CN (320x160, f32, ring matvec and
+    block-Jacobi kernels) under ``differentiable_forward`` over
+    ``ADJ_STEPS`` steps: the forward and the backward each profiled
+    (device ms, device kernels) and counted (launches; the backward's
+    ring_mv must be > 0), their wall times, and the peak memory of an
+    ``ADJ_MEM_STEPS``-step gradient stored and checkpointed (chunk 2).
+    Returns the launches of the gradient's run (forward + backward)."""
+    dev = torch.device("cuda")
+    s, t_setup = model2d("cn", dev, torch.float32)
+    fwd = adjoint_forward(s, ADJ_STEPS)
+    ctl = adjoint_controls(s)
+    _, t_warm = sync_time(lambda: adjoint_grad(fwd, ctl))
+    held = []
+
+    def forward():
+        xs = [c.detach().clone().requires_grad_(True) for c in ctl]
+        held.append((fwd(*xs), xs))
+
+    reset_counts()
+    rows_f = device_rows(forward, host=False)
+    n_f = counts()
+    J, xs = held.pop()
+    grads = []
+    reset_counts()
+    rows_b = device_rows(lambda: grads.append(torch.autograd.grad(J, xs)),
+                         host=False)
+    n_b = counts()
+    if not rows_f or not rows_b:
+        raise RuntimeError("28a: the profiler saw no device kernel")
+    if n_b["ring_mv"] < 1 or n_f["ring_mv"] < 1:
+        raise AssertionError(f"28a: ring_mv launches forward {n_f}, "
+                             f"backward {n_b}")
+    for g in grads[0]:
+        if not torch.isfinite(g).all() or float(g.abs().max()) == 0.0:
+            raise AssertionError("28a: gradient not finite or zero")
+    _, t_f = sync_time(lambda: forward())
+    J, xs = held.pop()
+    _, t_b = sync_time(lambda: torch.autograd.grad(J, xs))
+    st = s.timestepper.stats
+    for name, rows, n, t in (("forward", rows_f, n_f, t_f),
+                             ("backward", rows_b, n_b, t_b)):
+        log(f"[28a adjoint {name}] {NX}x{NY} f32 CN, {ADJ_STEPS} steps: "
+            f"device {sum(r[0] for r in rows) / 1e3:.3f} ms, "
+            f"{sum(r[1] for r in rows)} device kernels, wall "
+            f"{t * 1e3:.1f} ms; ring_mv {n['ring_mv']}, block_diag_mv "
+            f"{n['block_diag_mv']} launches")
+    log(f"[28a adjoint] J {float(J.detach()):.6e}; last step's FGMRES cycles "
+        f"{st.get('ksp_cycles')}, adjoint cycles "
+        f"{st.get('adjoint_ksp_cycles')}; setup {t_setup:.2f} s, first "
+        f"gradient {t_warm:.2f} s; card: {smi}")
+    peaks = {}
+    out = {}
+    for ck in (False, 2):
+        f8 = adjoint_forward(s, ADJ_MEM_STEPS, checkpoint=ck)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (j8, g8), t8 = sync_time(lambda: adjoint_grad(f8, ctl))
+        peaks[ck] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[ck] = (j8, g8, t8)
+    errs = [max_rel(a, b) for a, b in zip(out[2][1], out[False][1])]
+    if max(errs) > 1e-3:
+        raise AssertionError(f"28a: checkpointed gradient differs {errs}")
+    log(f"[28a adjoint memory] {ADJ_MEM_STEPS} steps: peak above the "
+        f"solver {peaks[False]:.1f} MiB stored, {peaks[2]:.1f} MiB with "
+        f"checkpoint=2; gradient {out[False][2]:.2f} s and "
+        f"{out[2][2]:.2f} s; checkpointed against stored max|diff|/max "
+        f"{max(errs):.2e}; card: {smi}")
+    return {k: n_f[k] + n_b[k] for k in KERNELS}
+
+
+def taylor_rate(fwd, controls, which, dc, h0):
+    """The Taylor rate of ``fwd`` in control ``which`` along ``dc``."""
+    from thetis_tpu_torch.adjoint import Control, ReducedFunctional, \
+        taylor_test
+
+    def one(v):
+        vals = list(controls)
+        vals[which] = v
+        return fwd(*vals)
+
+    rf = ReducedFunctional(one, Control(controls[which]))
+    return taylor_test(rf, controls[which], dc, h0=h0)
+
+
+def pcg_replays(s, fn):
+    """Run ``fn``; the mass PCGs' graph replays during it and their eager
+    CUDA solves (28d requires replays and no eager solve)."""
+    pcgs = solver_pcgs(s)
+    r0 = [p.replays for p in pcgs]
+    out = fn()
+    return out, [p.replays - r for p, r in zip(pcgs, r0)], \
+        [p.eager_cuda for p in pcgs]
+
+
+def sum_squares(st):
+    return sum((v ** 2).sum() for v in st.values())
+
+
+def phase_adjoint_checks(smi):
+    """Phases 28b-28d, f64, timing nothing: (b) the full-width CN
+    gradient with the kernels against the plain versions and its Taylor
+    rate, and the 40x20 gradient on the card against the CPU's; (c) the
+    channel-inversion example in a process of its own (``python3
+    chip_smoke.py channel_inversion``), started first; (d) the Taylor
+    rates through one explicit dg-cg step and one RT1 CN step at the
+    bench's width (every mass PCG replayed its graph in the backward, none
+    solved eagerly) and through the tidal-farm example's density."""
+    procs = start_cases([["channel_inversion"]])
+    try:
+        dev = torch.device("cuda")
+        s, _ = model2d("cn", dev, torch.float64)
+        tight_cn(s)
+        fwd = adjoint_forward(s, 2)
+        ctl = adjoint_controls(s)
+        j_k, g_k = adjoint_grad(fwd, ctl)
+        with plain_kernels():
+            reset_counts()
+            j_p, g_p = adjoint_grad(fwd, ctl)
+            if counts()["ring_mv"] or counts()["block_diag_mv"]:
+                raise AssertionError("28b: a kernel ran in the plain run")
+        errs = [max_rel(a, b) for a, b in zip(g_k, g_p)]
+        if max(errs) > ADJ_RTOL:
+            raise AssertionError(f"28b: kernels against plain {errs}")
+        e0 = ctl[1]
+        rate = taylor_rate(fwd, ctl, 1, 0.1 * torch.rand_like(e0), 0.2)
+        if not rate > 1.9:
+            raise AssertionError(f"28b: Taylor rate {rate}")
+        log(f"[28b adjoint f64] {NX}x{NY}, 2 steps: gradient with the "
+            f"kernels against the plain versions max|diff|/max "
+            f"{max(errs):.2e} (drag, elevation; <= {ADJ_RTOL:g}); Taylor "
+            f"rate in the initial elevation {rate:.4f} (> 1.9)")
+        gs = {}
+        for d in (dev, torch.device("cpu")):
+            sp, _ = model2d("cn", d, torch.float64, nx=NX_PARITY // 2,
+                            ny=NY_PARITY // 2)
+            tight_cn(sp)
+            gs[d.type] = adjoint_grad(adjoint_forward(sp, 2),
+                                      adjoint_controls(sp))
+        errs = [max_rel(a.cpu(), b)
+                for a, b in zip(gs["cuda"][1], gs["cpu"][1])]
+        if max(errs) > ADJ_RTOL:
+            raise AssertionError(f"28b: GPU against CPU {errs}")
+        log(f"[28b adjoint f64] {NX_PARITY // 2}x{NY_PARITY // 2}: GPU "
+            f"gradient against the CPU's max|diff|/max {max(errs):.2e} "
+            f"(<= {ADJ_RTOL:g})")
+        phase_adjoint_families()
+    finally:
+        finish_cases(procs)
+
+
+def phase_adjoint_families():
+    """28d: Taylor rates through the mass PCGs and the farm, f64."""
+    dev = torch.device("cuda")
+    for tag, family, degree, stepper, cfl in (
+            ("dg-cg SSPRK33", "dg-cg", 1, "SSPRK33", 0.1),
+            ("rt-dg p0 CN", "rt-dg", 0, "CrankNicolson", 2.0)):
+        s, _ = family_solver(dev, torch.float64, family, degree, stepper,
+                             params=dict(ksp_rtol=1e-12, ksp_max_it=240,
+                                         gmres_restart=40), cfl=cfl)
+        fwd = s.differentiable_forward(
+            ["initial_elev"], terminal_functional=sum_squares, n_steps=1)
+        e0 = s.fields.elev_2d.data.clone()
+        _, replays, eager = pcg_replays(
+            s, lambda: adjoint_grad(fwd, [e0]))
+        if not replays or min(replays) < 1 or any(eager):
+            raise AssertionError(f"28d {tag}: mass PCG replays in the "
+                                 f"gradient {replays}, eager {eager}")
+        # the backward alone replays too
+        xs = [e0.clone().requires_grad_(True)]
+        J = fwd(*xs)
+        _, replays_b, eager = pcg_replays(
+            s, lambda: torch.autograd.grad(J, xs))
+        if min(replays_b) < 1 or any(eager):
+            raise AssertionError(f"28d {tag}: backward replays "
+                                 f"{replays_b}, eager {eager}")
+        rate = taylor_rate(fwd, [e0], 0, 0.1 * torch.rand_like(e0), 0.5)
+        if not rate > 1.9:
+            raise AssertionError(f"28d {tag}: Taylor rate {rate}")
+        log(f"[28d adjoint {tag}] {s.mesh2d.nc} cells f64, one step: Taylor "
+            f"rate in the initial elevation {rate:.4f} (> 1.9); mass PCG "
+            f"graph replays in a gradient {replays}, in its backward "
+            f"{replays_b}, eager CUDA solves {eager}")
+    fwd, rf, density = tidalfarm_case(dev)
+    rng = torch.Generator(device="cpu").manual_seed(3)
+    dc = 0.001 * torch.rand(density.shape, generator=rng, dtype=density.dtype)
+    from thetis_tpu_torch.adjoint import taylor_test
+    rate = taylor_test(rf, density, dc.to(dev), h0=0.2)
+    if not rate > 1.9:
+        raise AssertionError(f"28d tidalfarm: Taylor rate {rate}")
+    log(f"[28d adjoint tidalfarm] examples/tidalfarm at its regression size "
+        f"(50x15, 5 steps, f64): Taylor rate in turbine_density_0 "
+        f"{rate:.4f} (> 1.9)")
+
+
+def tidalfarm_case(device):
+    """``examples/tidalfarm/tidalfarm.py`` at its regression size (5
+    steps) written for the port: returns the forward, the reduced
+    functional (scale -1e-5, the example's) and the initial density."""
+    from thetis_tpu_torch.adjoint import Control, ReducedFunctional
+    from thetis_tpu_torch.model.turbines import (TidalTurbineFarmOptions,
+                                                 TidalTurbineOptions)
+
+    lx, ly = 2000.0, 600.0
+    mesh = RectangleMesh(50, 15, lx, ly, device=device, dtype=torch.float64)
+    p1 = FunctionSpace(mesh, "CG", 1)
+    so = FlowSolver2d(mesh, Function(p1).assign(40.0))
+    o = so.options
+    o.timestep = 10.0
+    o.simulation_export_time = 200.0
+    o.simulation_end_time = 200.0
+    o.no_exports = True
+    o.swe_timestepper_type = "CrankNicolson"
+    o.horizontal_viscosity = Constant(2.0)
+    o.quadratic_drag_coefficient = Constant(0.0025)
+    farm = TidalTurbineFarmOptions()
+    farm.turbine_options = TidalTurbineOptions(diameter=18.0,
+                                               thrust_coefficient=0.8)
+    x, y = SpatialCoordinate(mesh)
+    mask = ((x - lx / 2).abs() < 300.0) & ((y - ly / 2).abs() < 200.0)
+    farm.turbine_density = Function(p1).interpolate(
+        torch.where(mask, 0.003, 0.0))
+    farm.break_even_wattage = 200.0
+    o.tidal_turbine_farms = {"everywhere": [farm]}
+    so.bnd_functions["shallow_water"] = {1: {"un": Constant(-2.0)},
+                                         2: {"elev": Constant(0.0)}}
+    so.assign_initial_conditions(uv=torch.tensor([2.0, 0.0]), elev=0.0)
+    so.initialize()
+    n_steps, asm, farm_obj, dt = 5, so.asm, so.tidal_farms[0], so.dt
+
+    def profit_step(state, fields, t):
+        uv_q = asm.cell_values(state["uv"])
+        eta_q = asm.cell_values(state["elev"])
+        H_q = so.depth.total_depth(so.eq_sw.bathy_q, eta_q)
+        density_q = fields["turbine_density_0"]
+        power = asm.integrate_cellq(
+            farm_obj.turbine.power(uv_q, H_q) * density_q)
+        cost = farm.break_even_wattage * asm.integrate_cellq(density_q)
+        return (power - cost) / (n_steps * dt)
+
+    fwd = so.differentiable_forward(["turbine_density_0"],
+                                    step_functional=profit_step,
+                                    n_steps=n_steps)
+    rf = ReducedFunctional(fwd, Control(farm.turbine_density), scale=-1e-5)
+    return fwd, rf, farm.turbine_density.data.clone()
+
+
+def channel_inversion_solver(device, manning, c=CHANNEL):
+    mesh = RectangleMesh(c["nx"], c["ny"], c["lx"], c["ly"], device=device,
+                         dtype=torch.float64)
+    p1 = FunctionSpace(mesh, "CG", 1)
+    so = FlowSolver2d(mesh, Function(p1).assign(20.0))
+    o = so.options
+    o.timestep = 30.0
+    o.simulation_export_time = 30.0 * c["steps"]
+    o.simulation_end_time = 30.0 * c["steps"]
+    o.no_exports = True
+    o.swe_timestepper_type = "CrankNicolson"
+    o.manning_drag_coefficient = Function(p1).assign(float(manning))
+    so.bnd_functions["shallow_water"] = {1: {"un": Constant(-0.5)},
+                                         2: {"elev": Constant(0.0)}}
+    so.assign_initial_conditions(uv=torch.tensor([0.5, 0.0]), elev=0.0)
+    return so
+
+
+def channel_inversion(device, c=CHANNEL, output_dir=None):
+    """``examples/channel_inversion/inverse_problem.py`` written for the
+    port: the truth run's station records, then the inversion of the
+    Manning field from the first guess through ``InversionManager``
+    (L-BFGS-B, gradient regularisation).  Returns (J0, J1, recovered
+    mean Manning)."""
+    from thetis_tpu_torch.adjoint.inversion_tools import (
+        GradientRegularizationCalculator, InversionManager,
+        StationObservationManager)
+
+    names = [f"station{k}" for k in "ABCD"]
+    so = channel_inversion_solver(device, c["true"], c)
+    sta = StationObservationManager(so)
+    sta._xy = list(zip(c["x"], c["y"]))
+    sta.construct_evaluator()
+    state = so._get_state()
+    fields = so._gather_swe_fields()
+    bnd = so._gather_bnd("shallow_water")
+    times, samples = [], []
+    with torch.no_grad():
+        for i in range(c["steps"]):
+            state = so._advance(0.0, state, fields, {}, bnd, {})
+            samples.append(sta.sample(state).cpu().numpy())
+            times.append((i + 1) * so.dt)
+    samples = np.asarray(samples).T
+    so = channel_inversion_solver(device, c["guess"], c)
+    sta = StationObservationManager(so)
+    sta.register_observation_data(names, "elev", [times] * len(names),
+                                  list(samples), c["x"], c["y"])
+    sta.construct_evaluator()
+    im = InversionManager(sta, real_cost_function_scaling=1.0,
+                          output_dir=output_dir or os.path.join(
+                              "chiprun_out", "channel_inversion"))
+    reg = GradientRegularizationCalculator(so.asm, gamma=1e-4)
+    im.add_control("manning_drag_coefficient",
+                   so.options.manning_drag_coefficient, regularization=reg)
+    rf = im.get_reduced_functional(c["steps"])
+    J0 = rf()
+    result = im.minimize(maxiter=c["maxiter"], ftol=1e-14, gtol=1e-14)
+    J1 = rf([result])
+    return J0, J1, float(result.mean())
+
+
+def channel_inversion_case():
+    """Phase 28c in a process of its own (``python3 chip_smoke.py
+    channel_inversion``): the example at its regression size (32x4, 20
+    steps, 8 L-BFGS iterations), f64, against its own checks."""
+    t0 = time.perf_counter()
+    J0, J1, rec = channel_inversion(torch.device("cuda"))
+    if not (J1 < 0.1 * J0 and abs(rec - CHANNEL["true"])
+            < abs(CHANNEL["guess"] - CHANNEL["true"])):
+        raise AssertionError(f"28c channel inversion: J {J0} -> {J1}, "
+                             f"recovered Manning {rec}")
+    log(f"[28c channel inversion] 32x4, 20 steps, 8 L-BFGS iterations, "
+        f"f64: J {J0:.4e} -> {J1:.4e} (< 0.1 J0), recovered Manning "
+        f"{rec:.4f} (truth {CHANNEL['true']}, first guess "
+        f"{CHANNEL['guess']}); {time.perf_counter() - t0:.1f} s")
+
+
+def adjoint_only():
+    """Phase 28 alone (``python3 chip_smoke.py adjoint``): the device,
+    the build and the adjoint's phases; ends with the same last line."""
+    name = phase_device()
+    smi = card()
+    phase_build()
+    for phase in (phase_adjoint, phase_adjoint_checks):
+        t0 = time.perf_counter()
+        phase(smi)
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main():
     name = phase_device()
     smi = card()
@@ -3846,9 +4283,17 @@ def main():
         t0 = time.perf_counter()
         new[key] = phase(smi)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    # the adjoint: 28a's gradient run, its counts set to 0 just before it
+    # (the forward's and then the backward's, summed)
+    t0 = time.perf_counter()
+    new["adjoint"] = phase_adjoint(smi)
+    log(f"[phase_adjoint] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_cases()
     log(f"[phase_cases] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_adjoint_checks(smi)
+    log(f"[phase_adjoint_checks] {time.perf_counter() - t0:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -3875,7 +4320,8 @@ def main():
                                         new["nonhydrostatic"][k],
                                     "dg-cg": new["dg-cg"][k],
                                     "hdiv": new["hdiv"][k],
-                                    "sphere": new["sphere"][k]},
+                                    "sphere": new["sphere"][k],
+                                    "adjoint": new["adjoint"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3923,5 +4369,9 @@ if __name__ == "__main__":
         hdiv_cases()
     elif sys.argv[1:] == ["profile_families"]:
         profile_families()
+    elif sys.argv[1:] == ["channel_inversion"]:
+        channel_inversion_case()
+    elif sys.argv[1:] == ["adjoint"]:
+        adjoint_only()
     else:
         main()

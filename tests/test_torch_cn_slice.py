@@ -18,6 +18,10 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+
+pin_mesh_builders()
+
 import jax.numpy as jnp  # noqa: E402
 
 from thetis_tpu.mesh import generation as jgen  # noqa: E402
@@ -135,9 +139,10 @@ def test_cn_step_with_separate_old_fields():
 
 
 def test_unported_paths_raise():
-    """What the 2D model still lacks: the adjoint's entry point (A9) and
-    the HDF5 restart (A10).  Every element family is ported (A8): the
-    dg-cg elevation is the CG P2 space, and each family initializes."""
+    """What the 2D model still lacks: the HDF5 restart (A10).  Every
+    element family is ported (A8): the dg-cg elevation is the CG P2
+    space, and each family initializes; the adjoint (A9) is ported
+    (``test_assembled_step_gradient``)."""
     from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 
     _, tst, _, _ = build("rect", "bench")
@@ -149,8 +154,41 @@ def test_unported_paths_raise():
         s.options.timestep = 1.0
         s.options.element_family = family
         s.initialize()
-    for item, call in (
-            ("A9", lambda s: s.differentiable_forward(["initial_elev"])),
-            ("A10", lambda s: s.load_state(0))):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call(s)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        s.load_state(0)
+
+
+@pytest.mark.parametrize("kind", ["rect", "periodic"])
+def test_assembled_step_gradient(kind):
+    """The slice's assembled CN step (the ring solve's implicit-function
+    adjoint and the ring matvec's backward) is differentiable: the
+    gradient of the squared new state with respect to the old state and
+    the drag agrees with a central difference along a seeded direction
+    (the solve tight: 1e-6)."""
+    _, tst, state, fields = build(kind, "tight")
+    u0 = state_from_numpy(state, "cpu", F64)
+    rng = np.random.default_rng(8)
+    d = {k: torch.tensor(0.01 * rng.standard_normal(tuple(v.shape)))
+         for k, v in u0.items()}
+    drag = torch.tensor(2.5e-3, dtype=F64)
+
+    def J(u, cd):
+        f = dict(fields, quadratic_drag_coefficient=cd)
+        out = tst.advance(0.0, u, f, f, {})
+        return sum((v ** 2).sum() for v in out.values())
+
+    us = {k: v.clone().requires_grad_(True) for k, v in u0.items()}
+    cd = drag.clone().requires_grad_(True)
+    val = J(us, cd)
+    grads = torch.autograd.grad(val, list(us.values()) + [cd])
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert tst.stats["adjoint_ksp_cycles"] >= 1
+    h = 1e-4
+    with torch.no_grad():
+        fd = (float(J({k: v + h * d[k] for k, v in u0.items()}, drag))
+              - float(J({k: v - h * d[k] for k, v in u0.items()}, drag))
+              ) / (2 * h)
+        fd_c = (float(J(u0, drag + 1e-7)) - float(J(u0, drag - 1e-7))) / 2e-7
+    got = sum(float((g * d[k]).sum()) for g, k in zip(grads, us))
+    assert got == pytest.approx(fd, rel=1e-6)
+    assert float(grads[-1]) == pytest.approx(fd_c, rel=1e-5)

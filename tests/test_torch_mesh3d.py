@@ -12,7 +12,14 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from test_torch_mesh_builders import (  # noqa: E402
+    force_numpy, keep_state, pin_mesh_builders)
+
+pin_mesh_builders()
+
 import jax.numpy as jnp  # noqa: E402
+import thetis_tpu.native as jnative  # noqa: E402
+import thetis_tpu_torch.native as tnative  # noqa: E402
 
 from thetis_tpu.mesh import generation as jgen  # noqa: E402
 from thetis_tpu.mesh.extruded import ExtrudedMesh as JExt  # noqa: E402
@@ -215,3 +222,35 @@ def test_cumulative_integral(case, from_top):
     close(*both(case, "cumulative_integral",
                 case.rand(case.jm.nc, 3, NZ, 2), geom=True,
                 from_top=from_top))
+
+
+#: the facet-indexed comparisons: (method, input shape after the tail-less
+#: prefix, geometry argument)
+FACET_CASES = {
+    "facet_traces": (lambda c: (c.jm.nc, 3, NZ, 2), False),
+    "facet_trace_grads_h": (lambda c: (c.jm.nc, 3, NZ, 2), True),
+    "vfacet_to_dofs": (lambda c: (c.jm.nf, 2, NZ) + _nq(c)[1:], True),
+    "vfacet_grad_to_dofs": (lambda c: (c.jm.nf, 2, NZ) + _nq(c)[1:], True),
+}
+
+
+@pytest.mark.parametrize("method", sorted(FACET_CASES))
+@pytest.mark.parametrize("k", [None, 2])
+@pytest.mark.parametrize("kind", sorted(MESHES))
+def test_facet_cases_with_the_reference_on_numpy(kind, k, method,
+                                                 monkeypatch):
+    """The state in which these cases failed under several workers: the
+    reference's builder latched onto its numpy fallback (a worker that
+    loaded its half-written library) while the port's loads natively.
+    The module's pin, made when it is imported, puts the port on its
+    fallback too, and the facet-indexed arrays agree again."""
+    for mod in (jnative, tnative):
+        keep_state(monkeypatch, mod)
+    force_numpy(monkeypatch, jnative)
+    monkeypatch.setattr(tnative, "_tried", False)
+    pin_mesh_builders()
+    c = Case(kind)
+    shape, geom = FACET_CASES[method]
+    tail = () if k is None else (k,)
+    extra = (2,) if method == "vfacet_grad_to_dofs" else ()
+    close(*both(c, method, c.rand(*shape(c), *tail, *extra), geom=geom))

@@ -19,6 +19,10 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+
+pin_mesh_builders()
+
 import thetis_tpu.utils.log as jlog  # noqa: E402
 from thetis_tpu.model.callback import (  # noqa: E402
     VolumeConservation2DCallback as JVolume)
@@ -316,11 +320,9 @@ def test_facade_square_mesh_goes_to_the_card(gen, monkeypatch):
 
 
 def _opts_refused():
-    """What the 2D model still refuses, with its ROADMAP item: the
-    adjoint's entry point and the HDF5 restart."""
-    return {"differentiable_forward": (
-                lambda s: s.differentiable_forward(["initial_elev"]), "A9"),
-            "load_state": (lambda s: s.load_state(0), "A10")}
+    """What the 2D model still refuses, with its ROADMAP item: the HDF5
+    restart."""
+    return {"load_state": (lambda s: s.load_state(0), "A10")}
 
 
 REFUSED = _opts_refused()
@@ -411,8 +413,9 @@ def _port_solver(**opts):
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_unported_options_raise(what):
-    """Every element family and mesh of the reference is ported (A8); the
-    entry points of A9 and A10 still raise naming their item."""
+    """Every element family and mesh of the reference is ported (A8), and
+    the adjoint (A9); the entry points of A10 still raise naming their
+    item."""
     s = _port_solver()
     s.options.timestep = 1.0
     s.initialize()
@@ -478,8 +481,7 @@ def test_ported_options_step(what):
             assert s.options.wetting_and_drying_alpha.data.shape == (tm.nv,)
 
 
-@pytest.mark.parametrize("what", ["exporters", "load_state", "hdf5",
-                                  "differentiable_forward"])
+@pytest.mark.parametrize("what", ["exporters", "load_state", "hdf5"])
 def test_unported_entry_points_raise(what):
     s = _port_solver()
     if what == "exporters":
@@ -491,9 +493,46 @@ def test_unported_entry_points_raise(what):
     if what == "load_state":
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             s.load_state(0)
-    elif what == "hdf5":
+    else:
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             TVolume(s, export_to_hdf5=True)
+
+
+@pytest.mark.parametrize("control", ["initial_elev", "initial_uv",
+                                     "quadratic_drag_coefficient"])
+def test_differentiable_forward_runs(control):
+    """The adjoint's entry point (ROADMAP A9, which raised before it was
+    ported): on the default semi-implicit CN of the 12x6 rectangle, two
+    steps, the gradient of the domain integral of u plus the squared L2
+    norm of the elevation is finite and agrees with a central difference
+    along a seeded direction to 1e-6 (the solves stop at 1e-10); parity
+    with the reference is in ``test_torch_adjoint_*.py``."""
+    s = _port_solver()
+    s.options.timestep = 300.0
+    s.options.quadratic_drag_coefficient = 2.5e-3
+    s.options.swe_timestepper_options.solver_parameters = \
+        TNewtonParameters(ksp_rtol=1e-12, ksp_max_it=400, gmres_restart=40)
+    s.initialize()
+    x = s.function_spaces.H_2d.dof_coords()
+    s.assign_initial_conditions(elev=0.3 * torch.exp(
+        -((x[..., 0] - LX / 2) / 2e3) ** 2))
+    asm = s.asm
+    fwd = s.differentiable_forward(
+        [control], n_steps=2,
+        terminal_functional=lambda st: asm.integrate(st["uv"][..., 0])
+        + asm.norm_l2(st["elev"]) ** 2)
+    rng = np.random.default_rng(4)
+    if control == "quadratic_drag_coefficient":
+        c = torch.full((s.mesh2d.nv,), 2.5e-3, dtype=torch.float64)
+        d = torch.tensor(1e-3 * rng.random(c.shape))
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            s.differentiable_forward(["initial_elev"])
+        c = s._get_state()[control.split("_")[1]].clone()
+        d = torch.tensor(0.01 * rng.standard_normal(tuple(c.shape)))
+    ct = c.clone().requires_grad_(True)
+    J = fwd(ct)
+    (g,) = torch.autograd.grad(J, ct)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0.0
+    h = 1e-3
+    with torch.no_grad():
+        fd = (float(fwd(c + h * d)) - float(fwd(c - h * d))) / (2 * h)
+    assert float((g * d).sum()) == pytest.approx(fd, rel=1e-6)

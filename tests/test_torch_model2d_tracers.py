@@ -27,6 +27,10 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+
+pin_mesh_builders()
+
 from thetis_tpu.mesh import generation as jgen  # noqa: E402
 from thetis_tpu.model.flowsolver2d import FlowSolver2d as JSolver  # noqa: E402
 from thetis_tpu_torch.interop import flowsolver2d_from_reference  # noqa: E402

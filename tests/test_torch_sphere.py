@@ -21,6 +21,10 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+
+pin_mesh_builders()
+
 import jax.numpy as jnp  # noqa: E402
 from thetis_tpu.equations.shallowwater_rtdg import (  # noqa: E402
     ShallowWaterEquationsRTDG as JRTDG)

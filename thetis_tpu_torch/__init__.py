@@ -35,9 +35,16 @@ without a card they raise unless the caller asks for the CPU with
 script imports from ``thetis_tpu_torch.mesh.sphere`` and
 ``thetis_tpu_torch.mesh.gmsh`` as it does from the reference.  The rest
 of the reference's ``api.py`` waits for ROADMAP A10.
+
+The adjoint is ``thetis_tpu_torch.adjoint`` (``Control``,
+``ReducedFunctional``, ``taylor_test``, ``minimize``; the inversion
+toolkit in ``thetis_tpu_torch.adjoint.inversion_tools``), over
+``FlowSolver2d.differentiable_forward``, imported as a script imports
+``thetis_tpu.adjoint``.
 """
 import torch
 
+from . import adjoint
 from .config import physical_constants
 from .equations.limiter import VertexBasedP1DGLimiter
 from .fem.functionspace import Function, FunctionSpace, SpatialCoordinate

@@ -37,13 +37,26 @@ Each wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors; a CUDA tensor never takes the plain version, and
 a build or launch failure raises.  ``kernels/cases.py`` holds the ragged
 inputs that the CPU tests and ``chip_smoke.py`` share.
+
+A kernel's result carries no autograd graph, so both wrappers raise when
+an input needs a gradient: a silent detach would make every gradient
+through them wrong on the card while the CPU's plain versions stayed
+differentiable.  :class:`RingMV` is the differentiable ring matvec (the
+reference's ``custom_vjp`` of ``_ring_mv_fused``,
+``thetis_tpu/kernels/ringmv.py:106-138``): its backward is
+``xbar = A^T ybar``, one more :func:`ring_mv` on the blocks of ``A^T``
+over the same ring table (:func:`ring_transpose_T`), and the block
+cotangent ``ybar (x) x[ring]``, a plain einsum.  ``block_diag_mv`` needs
+no backward: the solvers apply it only inside a solve, under
+``no_grad``.
 """
 import ctypes
 
 import torch
 
 __all__ = ["ring_mv", "ring_mv_reference", "block_diag_mv",
-           "block_diag_mv_reference", "launches", "reset_launches", "NS", "D"]
+           "block_diag_mv_reference", "RingMV", "ring_reverse",
+           "ring_transpose_T", "launches", "reset_launches", "NS", "D"]
 
 NS = 4   # ring slots: self + 3 facet neighbours
 D = 9    # packed P1DG dofs per cell: eta(3) + uv(6)
@@ -103,6 +116,14 @@ def _check(blocks_T, x_T, ring, valid):
     return nc
 
 
+def _no_grad_inputs(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel's result would "
+            "carry no graph; differentiate through RingMV.apply (the ring "
+            "matvec) or call it under torch.no_grad()")
+
+
 def _lib():
     from .build import load_library
 
@@ -120,8 +141,10 @@ def ring_mv(blocks_T, x_T, ring, valid):
     """``y_T (9, nc)`` of the assembled ring operator applied to ``x_T``.
 
     CPU tensors take :func:`ring_mv_reference`; CUDA tensors launch the
-    hand-written kernel (built at first use) on the current stream."""
+    hand-written kernel (built at first use) on the current stream.
+    Raises if an input requires grad (see :class:`RingMV`)."""
     nc = _check(blocks_T, x_T, ring, valid)
+    _no_grad_inputs("ring_mv", blocks_T, x_T)
     if blocks_T.device.type == "cpu":
         return ring_mv_reference(blocks_T, x_T, ring, valid)
     if blocks_T.device.type != "cuda":
@@ -187,8 +210,11 @@ def block_diag_mv(diag_T, r_T):
     applied to ``r_T (9, nc)`` (component-major).
 
     CPU tensors take :func:`block_diag_mv_reference`; CUDA tensors launch
-    the hand-written kernel (built at first use) on the current stream."""
+    the hand-written kernel (built at first use) on the current stream.
+    Raises if an input requires grad: nothing differentiates through a
+    block-Jacobi apply."""
     nc = _check_bd(diag_T, r_T)
+    _no_grad_inputs("block_diag_mv", diag_T, r_T)
     if diag_T.device.type == "cpu":
         return block_diag_mv_reference(diag_T, r_T)
     if diag_T.device.type != "cuda":
@@ -205,3 +231,81 @@ def block_diag_mv(diag_T, r_T):
             f"block_diag_mv kernel launch failed: CUDA error {err}")
     _counts["block_diag_mv"] += 1
     return z
+
+
+def ring_reverse(ring, valid):
+    """``rev`` (nc, 4) int64, the slot of cell ``c`` in the ring of its
+    neighbour ``ring[c, s]``, when the table is a closed ring (each valid
+    slot's neighbour lists ``c`` at exactly one valid slot and ``c``
+    lists that neighbour once, as :func:`~..solvers.assembled.cell_ring`
+    builds them); None otherwise.  One host sync, cached on ``ring``."""
+    cached = getattr(ring, "_ring_rev", False)
+    if cached is not False:
+        return cached
+    r = ring.long()
+    cells = torch.arange(r.shape[0], device=r.device)
+    back = (r[r] == cells[:, None, None]) & valid[r]       # (nc, s, t)
+    once = ((r[:, :, None] == r[:, None, :]) & valid[:, None, :]).sum(-1)
+    closed = bool((((back.sum(-1) == 1) & (once == 1)) | ~valid).all())
+    rev = back.to(torch.uint8).argmax(-1) if closed else None
+    ring._ring_rev = rev
+    return rev
+
+
+def ring_transpose_T(blocks_T, ring, valid, rev):
+    """Component-major blocks of ``A^T`` over the same closed ring table:
+    ``A^T[s, i, j, c] = A[rev[c, s], j, i, ring[c, s]]``, zero on invalid
+    slots (the reference's ``_ring_transpose``,
+    ``thetis_tpu/solvers/assembled.py:553-566``, in the kernel's
+    layout).  Differentiable (plain indexing)."""
+    g = blocks_T[rev.T, :, :, ring.T.long()]            # (4, nc, 9, 9)
+    mask = valid.T[:, None, None, :].to(blocks_T.dtype)
+    return (g.permute(0, 3, 2, 1) * mask).contiguous()
+
+
+def _masked_gather(x_T, ring, valid):
+    xg = x_T[:, ring.T.long()]                          # (D, NS, nc)
+    return xg * valid.T[None].to(x_T.dtype)
+
+
+class RingMV(torch.autograd.Function):
+    """Differentiable :func:`ring_mv`: ``RingMV.apply(blocks_T, x_T,
+    ring, valid)``.  The forward launches the kernel (CUDA) or runs the
+    plain version (CPU) and counts as one launch.  Backward:
+
+    * ``xbar = A^T ybar``: on a closed ring table (a mesh's,
+      :func:`ring_reverse`) one :class:`RingMV` of the transposed blocks,
+      so the card runs it through the same kernel and double backward
+      works; on any other table (the ragged test cases) the transpose
+      does not fit the ring's slots and ``xbar`` is a scatter-add;
+    * ``blocks_bar[s, i, j, c] = ybar[i, c] x[j, ring[c, s]]``, zero on
+      invalid slots (the forward masks them).
+    """
+
+    @staticmethod
+    def forward(blocks_T, x_T, ring, valid):
+        return ring_mv(blocks_T, x_T, ring, valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        blocks_T, x_T, ring, valid = ctx.saved_tensors
+        ybar = ybar.contiguous()
+        gb = gx = None
+        if ctx.needs_input_grad[1]:
+            rev = ring_reverse(ring, valid)
+            if rev is not None:
+                gx = RingMV.apply(ring_transpose_T(blocks_T, ring, valid, rev),
+                                  ybar, ring, valid)
+            else:
+                mask = valid.T[:, None, None, :].to(ybar.dtype)
+                t = torch.einsum("sikc,ic->ksc", blocks_T * mask, ybar)
+                gx = torch.zeros_like(x_T).index_add_(
+                    1, ring.T.reshape(-1).long(), t.reshape(D, -1))
+        if ctx.needs_input_grad[0]:
+            gb = torch.einsum("ic,jsc->sijc", ybar,
+                              _masked_gather(x_T, ring, valid))
+        return gb, gx, None, None

@@ -274,6 +274,11 @@ class Mesh2d:
             sel = self.facet_marker_np == m
             self.boundary_len[m] = float(self.facet_len_np[sel].sum())
 
+    @property
+    def total_area(self):
+        """Domain area (host float)."""
+        return float(self.cell_area_np.sum())
+
     def cell_midpoints(self):
         """(nc, 2) host cell centroids."""
         return self.coords_np[self.cells_np].mean(axis=1)

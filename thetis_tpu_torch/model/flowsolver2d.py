@@ -49,9 +49,11 @@ pairs, on a namespace of quadrature tabulations in place of the planar
 sediment, NH or farms), as in the reference; none of these families is
 on the assembled (ring-kernel) path.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: ``differentiable_forward`` (A9); exporters (``no_exports=False``),
-the diagnostic HDF5 series and ``load_state`` (A10).
+``differentiable_forward`` builds the adjoint's forward model
+(:mod:`thetis_tpu_torch.adjoint`).  Not ported yet, and raising
+``NotImplementedError`` naming the ROADMAP item: exporters
+(``no_exports=False``), the diagnostic HDF5 series and ``load_state``
+(A10).
 """
 import time as time_mod
 from types import SimpleNamespace
@@ -872,8 +874,95 @@ class FlowSolver2d:
             f.w_2d.data = s["w"]
 
     # ------------------------------------------------------------------
-    def differentiable_forward(self, *args, **kwargs):
-        raise _unported("differentiable_forward (the adjoint)", "A9")
+    def differentiable_forward(self, controls, terminal_functional=None,
+                               step_functional=None, n_steps=None,
+                               checkpoint=None):
+        """A differentiable forward model ``fn(*control_tensors) -> J``
+        (a scalar tensor) for :mod:`thetis_tpu_torch.adjoint` (ref
+        ``flowsolver2d.py:936-1026``): ``n_steps`` advances from the
+        current state, through the same advance as :meth:`iterate`.
+
+        :arg controls: list of control names: any SWE coefficient option
+            ('quadratic_drag_coefficient', 'manning_drag_coefficient',
+            'linear_drag_coefficient', 'horizontal_viscosity',
+            'coriolis_frequency', 'wind_stress', 'momentum_source_2d',
+            ...), 'turbine_density_{i}', 'initial_elev' or 'initial_uv'
+        :arg terminal_functional: callable ``f(state) -> scalar`` on the
+            final state dict
+        :arg step_functional: callable ``f(state, fields, t) -> scalar``
+            accumulated as ``sum_i f(...) * dt`` (``t`` the step's start)
+        :kwarg checkpoint: adjoint memory checkpointing.  ``False`` keeps
+            every step's activations; ``True`` or an int chunk size runs
+            the sqrt-N schedule
+            (:func:`~thetis_tpu_torch.adjoint.checkpointing.checkpointed_scan`,
+            one extra forward per backward); the default ``None`` turns
+            it on beyond 128 steps.
+
+        The implicit solves differentiate by their implicit-function
+        adjoints (``solvers/``), so the gradient is the reference's."""
+        if not self._initialized:
+            self.initialize()
+        o = self.options
+        n = n_steps or int(round(o.simulation_end_time / self.dt))
+        state0 = dict(self._get_state())
+        base_fields = self._gather_swe_fields()
+        tracer_extra = self._gather_tracer_extra(state0)
+        bnd_sw = self._gather_bnd("shallow_water")
+        bnd_tr = self._gather_bnd("tracer")
+        name_map = {
+            "bathymetry_2d": "bathymetry_2d",
+            "coriolis_frequency": "coriolis",
+            "horizontal_viscosity": "viscosity_h",
+            "wind_stress": "wind_stress",
+            "atmospheric_pressure": "atmospheric_pressure",
+            "quadratic_drag_coefficient": "quadratic_drag_coefficient",
+            "manning_drag_coefficient": "manning_drag_coefficient",
+            "nikuradse_bed_roughness": "nikuradse_bed_roughness",
+            "linear_drag_coefficient": "linear_drag_coefficient",
+            "momentum_source_2d": "momentum_source",
+            "volume_source_2d": "volume_source",
+        }
+        dt = self.dt
+        advance = self._advance
+
+        def forward(*vals):
+            fields = dict(base_fields)
+            st = dict(state0)
+            for name, v in zip(controls, vals):
+                if name == "initial_elev":
+                    st["elev"] = v
+                elif name == "initial_uv":
+                    st["uv"] = v
+                elif name.startswith("turbine_density"):
+                    fields[name] = self.eq_sw._any_cell_q(v)
+                else:
+                    fields[name_map[name]] = v
+
+            def body(carry):
+                s, t, acc = carry
+                s = advance(t, s, fields, tracer_extra, bnd_sw, bnd_tr)
+                if step_functional is not None:
+                    acc = acc + step_functional(s, fields, t) * dt
+                return (s, t + dt, acc)
+
+            carry = (st, 0.0, st["elev"].new_zeros(()))
+            use_ckpt = checkpoint if checkpoint is not None else (n > 128)
+            if use_ckpt:
+                from ..adjoint.checkpointing import checkpointed_scan
+
+                chunk = (checkpoint if isinstance(checkpoint, int)
+                         and not isinstance(checkpoint, bool) else None)
+                s, _, acc = checkpointed_scan(body, carry, n, chunk=chunk)
+            else:
+                for _ in range(n):
+                    carry = body(carry)
+                s, _, acc = carry
+            J = acc
+            if terminal_functional is not None:
+                J = J + terminal_functional(s)
+            return J
+
+        return forward
 
     def load_state(self, *args, **kwargs):
         raise _unported("load_state (HDF5 checkpoints)", "A10")

@@ -28,14 +28,26 @@ Every 9x9 ring matvec and block-Jacobi apply goes through
 :func:`~thetis_tpu_torch.kernels.ringmv.block_diag_mv`, so on a CUDA
 mesh they are the hand-written kernels.
 
+The solve is differentiable by the implicit function theorem, as the
+reference's ``_ring_solve`` ``custom_vjp``: :class:`_RingSolve` runs
+FGMRES under ``no_grad`` and its backward solves ``A^T lam = xbar`` with
+the same FGMRES, kernels and preconditioner on the transposed blocks
+(:func:`~thetis_tpu_torch.kernels.ringmv.ring_transpose_T`,
+:meth:`CoarseCorrection.transpose`,
+``SchurFieldsplitPC.transpose``).  The ring matvecs outside the solve
+(:func:`ring_apply_T`) go through the differentiable
+:class:`~thetis_tpu_torch.kernels.ringmv.RingMV`.
+
 Not ported: the shift stencil (the CUDA kernel gathers through the ring
-table directly, so it needs no per-mesh offset decomposition) and the
-custom VJPs / transposed operators (ROADMAP A9).
+table directly, so it needs no per-mesh offset decomposition).
 """
+import copy
+
 import numpy as np
 import torch
 
-from ..kernels.ringmv import block_diag_mv, ring_mv
+from ..kernels.ringmv import (RingMV, block_diag_mv, ring_mv,
+                              ring_reverse, ring_transpose_T)
 
 __all__ = ["AssembledWavePC", "cell_ring", "ring_tables",
            "distance2_coloring", "assemble_ring_blocks", "get_coloring",
@@ -186,8 +198,9 @@ def ring_apply(blocks, ring, x):
 
 def ring_apply_T(blocks_T, x, ring, valid):
     """Component-major ring matvec on a cell-major vector: ``x`` (nc, 9)
-    -> (nc, 9) through the ring matvec kernel."""
-    return ring_mv(blocks_T, x.T.contiguous(), ring, valid).T
+    -> (nc, 9) through the ring matvec kernel (differentiable,
+    :class:`~thetis_tpu_torch.kernels.ringmv.RingMV`)."""
+    return RingMV.apply(blocks_T, x.T.contiguous(), ring, valid).T
 
 
 def aggregate_cells(mesh, target_size=96):
@@ -269,6 +282,27 @@ class CoarseCorrection:
         z = z_c[self.agg]
         return z if self.F is None else z @ self.F.T
 
+    def transpose(self):
+        """The coarse correction of the TRANSPOSED operator, for the
+        adjoint solve: ``(F^T P^T A P F)^T = F^T P^T A^T P F``, so only the
+        coarse inverse is transposed (ref ``assembled.py:390-416``).
+        Built once and cached."""
+        cached = getattr(self, "_transposed", None)
+        if cached is None:
+            cached = _TransposedCoarse(self)
+            self._transposed = cached
+        return cached
+
+
+class _TransposedCoarse(CoarseCorrection):
+    """:class:`CoarseCorrection` with the transposed coarse inverse."""
+
+    def __init__(self, coarse):
+        self.n_agg, self.d, self.nd_c = coarse.n_agg, coarse.d, coarse.nd_c
+        self.agg, self.F = coarse.agg, coarse.F
+        self.Ac_inv = coarse.Ac_inv.T.contiguous()
+        self._transposed = coarse
+
 
 def _ring_solve_impl(blocks_T, ring, valid, b, diag_inv_T, rtol, restart,
                      max_cycles, coarse=None, stats=None):
@@ -313,6 +347,68 @@ def _ring_solve_impl(blocks_T, ring, valid, b, diag_inv_T, rtol, restart,
     return x.reshape(d, nc).T, rnorm, bnorm
 
 
+def _transposed_coarse(coarse):
+    if coarse is None:
+        return None
+    transpose = getattr(coarse, "transpose", None)
+    if transpose is None:
+        raise NotImplementedError(
+            f"the ring solve's adjoint needs the preconditioner of the "
+            f"transposed operator, and {type(coarse).__name__} has no "
+            "transpose()")
+    return transpose()
+
+
+class _RingSolve(torch.autograd.Function):
+    """``dx = A^{-1} r0`` by :func:`_ring_solve_impl`, differentiable by
+    the implicit function theorem (the reference's ``_ring_solve``
+    ``custom_vjp``, ``thetis_tpu/solvers/assembled.py:572-623``).  The
+    backward solves ``A^T lam = xbar`` with the same FGMRES, ring matvec
+    and block-Jacobi kernels on the blocks of ``A^T``, the transposed
+    diagonal inverse and the transposed coarse object, to ``rtol``
+    against ``||xbar||``, and returns ``r0_bar = lam`` and ``blocks_bar[s,
+    i, j, c] = -lam[c, i] dx[ring[c, s], j]`` (zero on invalid slots).
+    ``out`` receives the forward's residual norm."""
+
+    @staticmethod
+    def forward(blocks_T, r0, ring, valid, diag_inv_T, rtol_eff, rtol,
+                restart, max_cycles, coarse, stats, out):
+        dx, rnorm, _ = _ring_solve_impl(
+            blocks_T, ring, valid, r0, diag_inv_T, rtol_eff, restart,
+            max_cycles, coarse=coarse, stats=stats)
+        out["rnorm"] = rnorm
+        return dx
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        (blocks_T, _, ring, valid, diag_inv_T, _, rtol, restart,
+         max_cycles, coarse, stats, _) = inputs
+        ctx.save_for_backward(blocks_T, ring, valid, diag_inv_T, output)
+        ctx.solve_args = (rtol, restart, max_cycles, coarse, stats)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, xbar):
+        blocks_T, ring, valid, diag_inv_T, dx = ctx.saved_tensors
+        rtol, restart, max_cycles, coarse, stats = ctx.solve_args
+        rev = ring_reverse(ring, valid)
+        if rev is None:
+            raise ValueError("the ring solve's adjoint needs a closed ring "
+                             "table (solvers.assembled.cell_ring)")
+        astats = {}
+        lam, _, _ = _ring_solve_impl(
+            ring_transpose_T(blocks_T, ring, valid, rev), ring, valid,
+            xbar.contiguous(), diag_inv_T.transpose(0, 1).contiguous(),
+            float(rtol), restart, max_cycles,
+            coarse=_transposed_coarse(coarse), stats=astats)
+        if stats is not None:
+            stats["adjoint_ksp_cycles"] = (stats.get("adjoint_ksp_cycles", 0)
+                                           + astats.get("ksp_cycles", 0))
+        xg = dx.T[:, ring.T.long()] * valid.T[None].to(dx.dtype)
+        blocks_bar = -torch.einsum("ic,jsc->sijc", lam.T, xg)
+        return (blocks_bar, lam) + (None,) * 10
+
+
 def ring_gmres(blocks_T, ring, valid, b, x0=None, r0=None, rtol=1e-5,
                restart=24, max_cycles=4, coarse=None, stats=None):
     """Solve ``A x = b`` for a component-major assembled ring operator
@@ -326,24 +422,35 @@ def ring_gmres(blocks_T, ring, valid, b, x0=None, r0=None, rtol=1e-5,
     convergence target still anchored to ``||b||``, and ``x = x0 + dx``.
     Like the reference, a solve whose residual grew past ``1e4 ||b||``
     returns NaN (PETSc's divergence tolerance).  ``stats``, when given,
-    collects ``ksp_cycles`` and ``ksp_rel_residual``."""
+    collects ``ksp_cycles`` and ``ksp_rel_residual`` (and, after a
+    backward pass, ``adjoint_ksp_cycles``).
+
+    Differentiable: the solve of the residual system is a
+    :class:`_RingSolve` over ``(blocks_T, r0)``; gradients reach ``x0``
+    through ``x = x0 + dx`` and ``r0`` through its own construction (the
+    matvec here, or the caller's closed form), by ordinary autograd (ref
+    ``assembled.py:647-656``)."""
     tiny = torch.finfo(b.dtype).tiny
-    diag_inv_T = batched_inv_small_T(blocks_T[0])
+    with torch.no_grad():
+        diag_inv_T = batched_inv_small_T(blocks_T[0])
     if x0 is None:
         x0 = torch.zeros_like(b)
     if r0 is None:
         r0 = b - ring_apply_T(blocks_T, x0, ring, valid)
-    bnorm = float(torch.linalg.vector_norm(b))
-    r0norm = float(torch.linalg.vector_norm(r0))
-    dx, rnorm, _ = _ring_solve_impl(
-        blocks_T, ring, valid, r0, diag_inv_T,
-        float(rtol) * bnorm / max(r0norm, tiny), restart, max_cycles,
-        coarse=coarse, stats=stats)
+    bnorm = float(torch.linalg.vector_norm(b.detach()))
+    r0norm = float(torch.linalg.vector_norm(r0.detach()))
+    out = {}
+    dx = _RingSolve.apply(
+        blocks_T, r0, ring, valid, diag_inv_T,
+        float(rtol) * bnorm / max(r0norm, tiny), float(rtol), restart,
+        max_cycles, coarse, stats, out)
+    rnorm = out["rnorm"]
     x = x0 + dx
     if stats is not None:
         stats["ksp_rel_residual"] = rnorm / max(bnorm, tiny)
     if rnorm > 1e4 * max(bnorm, tiny):
-        x = torch.full_like(x, float("nan"))
+        x = torch.where(torch.ones((), dtype=torch.bool, device=x.device),
+                        torch.full_like(x, float("nan")), x)
     return x
 
 
@@ -472,3 +579,22 @@ class AssembledWavePC:
         bT = torch.cat([r["uv"].reshape(nc, 6).T, r["elev"].T]).contiguous()
         x = self._solve(bT)
         return {"uv": x[:6].T.reshape(nc, 3, 2), "elev": x[6:].T}
+
+    def transpose(self):
+        """The same preconditioner for the transposed system ``W^T``, for
+        the Newton solve's adjoint (``J^T lam = g``): the blocks of
+        ``W^T`` over the same ring table and the transposed diagonal
+        inverse.  ``W`` itself preconditions ``J^T`` badly (the wave
+        coupling's off-diagonal blocks are not symmetric): reused there,
+        as the reference does, FGMRES stalls (ROADMAP C).  Built once and
+        cached."""
+        cached = getattr(self, "_transposed", None)
+        if cached is None:
+            cached = copy.copy(self)
+            cached.Wb = ring_transpose_T(
+                self.Wb, self.ring, self.valid,
+                ring_reverse(self.ring, self.valid))
+            cached.Wdiag_inv = self.Wdiag_inv.transpose(0, 1).contiguous()
+            cached._transposed = self
+            self._transposed = cached
+        return cached

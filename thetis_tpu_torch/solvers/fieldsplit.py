@@ -24,13 +24,14 @@ Setup is host-side (float64 numpy, scipy.sparse Galerkin triple product
 for the coarse matrix) from the rest-state blocks, once per solver.  The
 sub-blocks are 6x6, 6x3, 3x6 and 3x3; the reference applies them with
 XLA gathers and contractions, not with a Pallas kernel, and so does the
-port (gather + ``einsum``).  Not ported: ``transpose()`` (the adjoint
-solve, ROADMAP A9).
+port (gather + ``einsum``).  :meth:`SchurFieldsplitPC.transpose` is the
+same PC built from the transposed blocks, for the ring solve's adjoint.
 """
 import numpy as np
 import torch
 
-from .assembled import aggregate_cells, ring_apply
+from ..kernels.ringmv import ring_reverse, ring_transpose_T
+from .assembled import aggregate_cells, ring_apply, ring_tables
 
 __all__ = ["SchurFieldsplitPC"]
 
@@ -88,6 +89,8 @@ class SchurFieldsplitPC:
         nc, ns, d, _ = blocks_np.shape
         ne = d - n_u
         self.nc, self.n_u, self.ne = nc, n_u, ne
+        self._mesh, self._coarse_cap = mesh, coarse_cap
+        self._transposed = None
         self.u_smooth = int(u_smooth)
         self.s_iters = int(s_iters)
         self.eta_first = bool(eta_first)
@@ -192,3 +195,27 @@ class SchurFieldsplitPC:
         if self.eta_first:
             return torch.cat([z_e, z_u], dim=-1)
         return torch.cat([z_u, z_e], dim=-1)
+
+    def transpose(self):
+        """The PC of the transposed monolithic operator, for the ring
+        solve's adjoint: the same construction from the transposed ring
+        blocks, whose Schur complement is exactly ``S^T`` (ref
+        ``fieldsplit.py:247-273``).  Built once and cached."""
+        if self._transposed is None:
+            d = self.n_u + self.ne
+            su, se = self._su, self._se
+            blocks = self.Auu.new_zeros((self.nc, self.ring.shape[1], d, d))
+            blocks[:, :, su, su] = self.Auu
+            blocks[:, :, su, se] = self.Aue
+            blocks[:, :, se, su] = self.Aeu
+            blocks[:, :, se, se] = self.Aee
+            ring, valid = ring_tables(self._mesh)
+            blocks_t = ring_transpose_T(blocks.permute(1, 2, 3, 0), ring,
+                                        valid, ring_reverse(ring, valid))
+            self._transposed = SchurFieldsplitPC(
+                blocks_t.permute(3, 0, 1, 2), self.ring.cpu().numpy(),
+                self._mesh, n_u=self.n_u,
+                u_smooth=self.u_smooth, s_iters=self.s_iters,
+                coarse_cap=self._coarse_cap, eta_first=self.eta_first)
+            self._transposed._transposed = self
+        return self._transposed

@@ -19,8 +19,17 @@ loop keeps exactly ``restart`` iterations with a breakdown guard, so
 both packages walk the same Krylov path wherever the reference's guard
 does not fire spuriously (see :func:`_fgmres_flat`).
 
-Not ported: the implicit-function-theorem ``custom_vjp`` of
-``newton_solve`` (ROADMAP A9); the port's solve is not differentiable.
+:func:`newton_solve` is differentiable by the implicit function theorem,
+as the reference's ``_newton_cv`` ``custom_vjp``
+(``thetis_tpu/solvers/newton.py:263-288``): the iteration runs with its
+linear solves under ``no_grad``, the residual at the root ``r = F(u*)``
+keeps its graph to the tensors the residual closes over, and the result
+is ``u* + S(r)`` with :class:`_NewtonAdjoint` ``S``: zeros forward, and
+backward ``-lam`` with ``J^T lam = gbar`` solved by the same FGMRES and
+preconditioner (``J^T w`` one VJP of the residual at ``u*``), or by the
+transposed dense Jacobian under ``dense=True``.  So the parameters get
+``-(dF/dparams)^T lam`` and the initial guess nothing, and autograd never
+tapes a Krylov iteration.
 """
 import math
 
@@ -279,41 +288,131 @@ def _tangent_map(f, x):
     return jvp_fn
 
 
+def _on_graph(tree):
+    return any(v.requires_grad for v in tree.values())
+
+
 def _newton_iterate(f, u0, precond, params, stats):
+    """Newton iterations from ``u0`` (no gradient): ``(u, r)``, with ``r
+    = f(u)`` evaluated under the caller's grad mode when the residual
+    reads a tensor that requires grad (else None).  Only the residual
+    evaluations see grad mode; the iterates and linear solves never carry
+    a graph."""
     if params.snes_max_it == 1:
         # semi-implicit / Picard 'ksponly' path: single linear solve
         # (ref timeintegrator.py:186-211)
-        du = _linsolve(_tangent_map(f, u0), _neg(f(u0)), precond, params,
-                       stats)
+        f0 = f(u0)
+        with torch.no_grad():
+            du = _linsolve(_tangent_map(f, u0), _neg(f0), precond, params,
+                           stats)
+            x = _axpy(1.0, du, u0)
         stats["newton_iterations"] = 1
-        return _axpy(1.0, du, u0)
+        return x, (f(x) if _on_graph(f0) else None)
 
     x = u0
     fx = f(u0)
-    r0 = float(_norm(fx))
+    r0 = float(_norm(fx).detach())
     tol = max(params.snes_rtol * r0, params.snes_atol)
     rnorm = r0
     i = 0
     while i < params.snes_max_it and rnorm > tol:
-        du = _linsolve(_tangent_map(f, x), _neg(fx), precond, params, stats)
-        x_new = _axpy(1.0, du, x)
+        with torch.no_grad():
+            du = _linsolve(_tangent_map(f, x), _neg(fx), precond, params,
+                           stats)
+            x_new = _axpy(1.0, du, x)
         fx_new = f(x_new)
-        rn_new = float(_norm(fx_new))
+        rn_new = float(_norm(fx_new).detach())
         if params.line_search:
             # backtracking: halve the step while the residual norm does
             # not decrease (PETSc 'newtonls' analogue)
             alpha = 1.0
             while alpha > 1.0 / 64.0 and rn_new >= rnorm:
                 alpha = 0.5 * alpha
-                x_new = _axpy(alpha, du, x)
+                with torch.no_grad():
+                    x_new = _axpy(alpha, du, x)
                 fx_new = f(x_new)
-                rn_new = float(_norm(fx_new))
+                rn_new = float(_norm(fx_new).detach())
         x, fx, rnorm = x_new, fx_new, rn_new
         i += 1
     stats["newton_iterations"] = i
     stats["snes_rel_residual"] = rnorm / max(r0, torch.finfo(
         fx[sorted(fx)[0]].dtype).tiny)
-    return x
+    return x, (fx if _on_graph(fx) else None)
+
+
+def _dense_jacobian(f, u):
+    """The Jacobian of ``f`` at ``u`` as a dense matrix on ``_ravel``'s
+    flat vectors (forward mode under ``vmap``, as ``dense_jvp``)."""
+    u_flat, unravel = _ravel(u)
+    eye = torch.eye(u_flat.shape[0], dtype=u_flat.dtype, device=u_flat.device)
+
+    def col(v):
+        v = unravel(v)
+        return _ravel(torch.func.jvp(f, (u,), ({k: v[k] for k in u},))[1])[0]
+
+    return torch.func.vmap(col, in_dims=1, out_dims=1)(eye)
+
+
+def _adjoint_solve(f, u, g, precond, params, stats):
+    """``lam`` with ``J^T lam = g``, ``J`` the Jacobian of ``f`` at ``u``
+    (the reference's ``_newton_cv_bwd``): FGMRES on VJPs of one graph of
+    ``f`` at ``u``, preconditioned by the forward's preconditioner (its
+    ``transpose()`` where it has one); the transposed dense Jacobian under
+    ``dense=True``."""
+    if getattr(params, "dense", False):
+        g_flat, unravel = _ravel(g)
+        J = _dense_jacobian(f, {k: u[k].detach() for k in u})
+        return unravel(torch.linalg.solve(J.T, g_flat))
+    keys = list(u)
+    with torch.enable_grad():
+        xs = {k: u[k].detach().requires_grad_(True) for k in keys}
+        out = f(xs)
+    out_keys = list(out)
+
+    def JT(w):
+        gr = torch.autograd.grad([out[k] for k in out_keys],
+                                 [xs[k] for k in keys],
+                                 [w[k] for k in out_keys],
+                                 retain_graph=True, allow_unused=True)
+        return {k: (t if t is not None else torch.zeros_like(xs[k]))
+                for k, t in zip(keys, gr)}
+
+    # the forward's preconditioner, transposed where it is not symmetric
+    # (the reference reuses it as it is, right for the mass inverse)
+    transpose = getattr(precond, "transpose", None)
+    astats = {}
+    lam = _linsolve(JT, g, transpose() if transpose else precond, params,
+                    astats)
+    stats["adjoint_ksp_cycles"] = (stats.get("adjoint_ksp_cycles", 0)
+                                   + astats.get("ksp_cycles", 0))
+    stats["adjoint_ksp_rel_residual"] = astats.get("ksp_rel_residual")
+    return lam
+
+
+class _NewtonAdjoint(torch.autograd.Function):
+    """``S(r)`` of :func:`newton_solve`: ``apply(f, u, precond, params,
+    stats, *r)`` with ``r`` the residual's values at the root ``u``
+    (sorted keys) returns zeros, so ``u + S(r)`` is the root; its backward
+    maps the root's cotangent ``gbar`` to ``r_bar = -lam``, ``J^T lam =
+    gbar``, and autograd carries that through ``r``'s graph to the
+    parameters: ``-(dF/dparams)^T lam``."""
+
+    @staticmethod
+    def forward(f, u, precond, params, stats, *r):
+        return tuple(torch.zeros_like(v) for v in r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve = inputs[:5]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gbar):
+        f, u, precond, params, stats = ctx.solve
+        keys = sorted(u)
+        lam = _adjoint_solve(f, u, dict(zip(keys, gbar)), precond, params,
+                             stats)
+        return (None,) * 5 + tuple(-lam[k] for k in keys)
 
 
 def newton_solve(residual_fn, u0, precond=None, params=None, stats=None):
@@ -325,11 +424,22 @@ def newton_solve(residual_fn, u0, precond=None, params=None, stats=None):
         ``ksp_cycles`` (summed over the Newton iterations),
         ``ksp_rel_residual`` (the last linear solve's projected relative
         residual) and, for a Newton loop, ``snes_rel_residual``
-    :returns: the solution dict
+    :returns: the solution dict, differentiable with respect to the
+        tensors ``residual_fn`` closes over by the implicit function
+        theorem (none flows to ``u0``, the initial guess); ``stats`` gains
+        ``adjoint_ksp_cycles`` when a backward pass runs the adjoint solve
     """
     params = params or NewtonParameters()
-    return _newton_iterate(residual_fn, u0, precond, params,
-                           {} if stats is None else stats)
+    stats = {} if stats is None else stats
+    u, r = _newton_iterate(residual_fn, {k: v.detach() for k, v in u0.items()},
+                           precond, params, stats)
+    if r is None:
+        return u
+    keys = sorted(r)
+    zeros = _NewtonAdjoint.apply(residual_fn, u, precond, params, stats,
+                                 *[r[k] for k in keys])
+    zeros = dict(zip(keys, zeros))
+    return {k: u[k] + zeros[k] for k in u}
 
 
 def linear_solve(matvec, b, precond=None, rtol=1e-7, restart=16, maxiter=3):

@@ -3,11 +3,17 @@
 The mass inverses of the CG and H(div) spaces (the CG1 tracer mass, the
 CG2 elevation mass of ``dg-cg``, the RT/BDM velocity masses) are all the
 same loop in the reference, a ``lax.scan`` of a fixed length wrapped in
-``lax.custom_linear_solve`` (``thetis_tpu/fem/rt.py:247-273`` and its
-copies).  The wrapper only makes the solve transposable under JAX; no
-caller differentiates through it (they use it as a preconditioner or an
-explicit update), so here it is the plain loop.  A fixed count keeps the
-loop free of host syncs and gives both packages the same iterates.
+``lax.custom_linear_solve(..., symmetric=True)``
+(``thetis_tpu/fem/rt.py:247-273`` and its copies): a solve of a
+symmetric operator that does not depend on the controls, so its
+transpose, its tangent and its batched form are the same solve applied
+to the cotangent, the tangent and each batch member.  :class:`JacobiPCG`
+is that solve as a ``torch.autograd.Function``: gradients, ``torch.func``
+JVPs (the Newton Jacobian products ``_tangent_map`` and ``dense_jvp``
+make through the residuals that hold these solves) and ``vmap`` (colour
+probing) all go through it, never through the loop's iterations.  A
+fixed count keeps the loop free of host syncs and gives both packages the
+same iterates.
 
 The loop is ~15 small launches an iteration, so 30-50 iterations cost
 the host far more than the device; :class:`JacobiPCG` captures it once
@@ -53,17 +59,51 @@ def jacobi_pcg(apply, b, diag, iterations):
     return x.view(shape)
 
 
-class JacobiPCG:
-    """:func:`jacobi_pcg` of a fixed operator, preconditioner and count.
+class _MassSolve(torch.autograd.Function):
+    """``x = apply^{-1} b`` by a :class:`JacobiPCG` ``pcg``: the solve is
+    symmetric and constant, so the backward, the JVP and each member of a
+    batch are the same solve (and the backward's own backward too).  The
+    forward may capture a CUDA graph only where ``capture`` is set: the
+    top-level call, never the backward (autograd runs it on another
+    thread), the JVP or a batch member."""
 
-    On a CUDA tensor (that needs no gradient) the loop is captured as a
-    CUDA graph the first time a shape and dtype come, and replayed from
-    then on (the input copied into the graph's buffer, the result cloned
-    out of it); ``apply`` must read only tensors that stay in place, as a
-    mass matrix's tables do.  A capture that fails raises.  On the CPU,
-    and where a gradient is asked for, the loop runs eagerly: the same
-    kernels, launched one by one.  ``replays`` counts the graph replays
-    and ``eager_cuda`` the eager solves of CUDA tensors."""
+    @staticmethod
+    def forward(b, pcg, capture):
+        return pcg._run(b, capture)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.pcg = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _MassSolve.apply(g, ctx.pcg, False), None, None
+
+    @staticmethod
+    def jvp(ctx, b_dot, *_):
+        return _MassSolve.apply(b_dot, ctx.pcg, False)
+
+    @staticmethod
+    def vmap(info, in_dims, b, pcg, capture):
+        if in_dims[0] is None:
+            return _MassSolve.apply(b, pcg, False), None
+        return torch.stack([_MassSolve.apply(bi, pcg, False)
+                            for bi in b.unbind(in_dims[0])]), 0
+
+
+class JacobiPCG:
+    """:func:`jacobi_pcg` of a fixed symmetric operator, preconditioner
+    and count, differentiable as a linear solve (:class:`_MassSolve`).
+
+    On a CUDA tensor the loop is captured as a CUDA graph the first time
+    a shape and dtype come to a top-level call, and replayed from then on,
+    in the forward and in the backward (the input copied into the graph's
+    buffer, the result cloned out of it); ``apply`` must read only tensors
+    that stay in place, as a mass matrix's tables do.  A capture that
+    fails raises.  On the CPU the loop runs eagerly; so does a solve on
+    the card whose shape no top-level call has captured yet.  ``replays``
+    counts the graph replays and ``eager_cuda`` the eager solves of CUDA
+    tensors."""
 
     def __init__(self, apply, diag, iterations):
         self.apply = apply
@@ -77,13 +117,16 @@ class JacobiPCG:
         return jacobi_pcg(self.apply, b, self.diag, self.iterations)
 
     def __call__(self, b):
+        return _MassSolve.apply(b, self, True)
+
+    def _run(self, b, capture):
         if not b.is_cuda:
-            return self._solve(b)
-        if b.requires_grad and torch.is_grad_enabled():
-            self.eager_cuda += 1
             return self._solve(b)
         key = (tuple(b.shape), b.dtype)
         if key not in self._graphs:
+            if not capture:
+                self.eager_cuda += 1
+                return self._solve(b)
             self._graphs[key] = self._capture(b)
         b_in, x_out, graph = self._graphs[key]
         b_in.copy_(b)

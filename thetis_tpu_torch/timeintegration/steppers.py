@@ -199,11 +199,15 @@ class CrankNicolson(TimeIntegrator):
 
         def F(u):
             if not const:
-                m_old = eq.mass_term(u_old)
-                r_expl = eq.residual("all", u_old, u_old, fields_old,
-                                     fields_old, bnd_values)
-                const.append(_tree_lc([(-1.0, m_old),
-                                       (-(1 - th) * dt, r_expl)]))
+                # with its graph whatever the grad mode of this first call
+                # (a Newton solve makes its first one without): the
+                # adjoint differentiates through it
+                with torch.enable_grad():
+                    m_old = eq.mass_term(u_old)
+                    r_expl = eq.residual("all", u_old, u_old, fields_old,
+                                         fields_old, bnd_values)
+                    const.append(_tree_lc([(-1.0, m_old),
+                                           (-(1 - th) * dt, r_expl)]))
             u_nl = u_lag if self.semi_implicit else u
             r_impl = eq.residual("all", u, u_nl, fields, fields, bnd_values)
             return _tree_lc(
