@@ -59,7 +59,14 @@ PyTorch version:
   matvec kernel again (the adjoint ring solves on the transposed blocks
   and the block-Jacobi kernel on the transposed diagonal), the channel
   inversion and tidal-farm examples, and gradients through the mass
-  PCGs' CUDA graphs.
+  PCGs' CUDA graphs;
+* I/O and forcing: demos/demo_2d_north_sea.py through the port with its
+  exports on (the VTK series, the HDF5 checkpoints where h5py is
+  installed), the TPXO-format tidal file read every step and three
+  tide-gauge stations every step, at the demo's size and on a 104,423-cell
+  coastline mesh (DIRK22 stages on the ring matvec and block-Jacobi
+  kernels), the ring kernels at that mesh's ring table, and ERA5 forcing
+  set into the card's fields.
 
 Phases, each printing its lines:
 
@@ -226,6 +233,34 @@ Phases, each printing its lines:
     solving eagerly) and through examples/tidalfarm's density at its
     regression size.
 
+29. I/O and forcing (``python3 chip_smoke.py io`` runs it alone): first a
+    line saying whether h5py is installed and, if not, which parts are
+    left out (the HDF5 checkpoints, ``load_state``, ``DiagnosticHDF5``,
+    the NetCDF4 reader); (a) the North Sea demo at its own size (40 km,
+    665 cells, f64, DIRK22, 24 hourly steps, the TPXO boundary set every
+    step, hourly exports, three stations every step) against
+    tests/test_north_sea.py's bounds, one station row a step and the
+    expected export files; (b) the same at 3.2 km (104,423 cells, f32, dt
+    scaled with the resolution: the demo's wave CFL, printed with the
+    preconditioner the CFL policy picks), 1 + 12 steps with the VTK
+    series every 4 steps and the stations, then without I/O: ms/step of
+    each, ring_mv / block_diag_mv launches a step, FGMRES cycles, seconds
+    per export of each exporter and per station evaluation; with h5py a
+    restart from export 2 against the uninterrupted run and a second
+    uninterrupted run's spread; the profiler's device kernels and device
+    ms of one step from a process of its own in phase 21's block
+    (``python3 chip_smoke.py profile_io``); the ring kernels against
+    their plain versions at the 3.2 km mesh's ring table (phase 3's
+    ``shapes``); after phase 21's block, f64: (c) one North Sea step and
+    its stations GPU against CPU, tests/test_checkpoint.py's 3D case with
+    the VTK series and the profile, transect and station callbacks GPU
+    against CPU (the tridiagonal kernel), and with h5py the 2D and 3D
+    checkpoint cases restarted on the card and a checkpoint carried
+    card -> CPU and back; (d) a synthetic ERA5 file's wind stress and
+    pressure set into the card's fields (to 1e-12 of the host's numpy)
+    and one North Sea step with them, GPU against CPU.  The phase prints
+    its seconds.
+
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -235,6 +270,7 @@ without a CUDA device it exits 1 at once.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -267,6 +303,7 @@ from thetis_tpu_torch.model.flowsolver3d import FlowSolver
 from thetis_tpu_torch.solvers.assembled import get_coloring, ring_tables
 from thetis_tpu_torch.solvers.newton import NewtonParameters
 from thetis_tpu_torch.solvers.pcg import JacobiPCG
+from thetis_tpu_torch.timeintegration.rungekutta import SCHEMES
 from thetis_tpu_torch.timeintegration.steppers import get_stepper
 from thetis_tpu_torch.utils.constant import Constant
 from thetis_tpu_torch.utils.coordsys import beta_plane_coriolis_params
@@ -2571,7 +2608,8 @@ def phase_cases():
                         + [["standing_wave"], ["tidal_array"],
                            ["solitary_wave"], ["profile_slice9"]]
                         + [["dgcg_wave", k] for k in DGCG_WAVES]
-                        + [["dgcg_volume"], ["hdiv_cases"], ["profile_families"]])
+                        + [["dgcg_volume"], ["hdiv_cases"], ["profile_families"],
+                           ["profile_io"]])
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 4))
     try:
@@ -4185,6 +4223,775 @@ def channel_inversion_case():
         f"{CHANNEL['guess']}); {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 29: I/O and forcing, as the North Sea demo runs them ----------
+#: demos/north_sea_mesh.py's simplified coastline, counter-clockwise
+#: (lon, lat), and its open-boundary segments (Dover strait, the north)
+NS_OUTLINE = np.array([
+    (1.60, 51.20), (1.75, 52.40), (1.40, 52.90), (0.30, 53.40),
+    (-0.20, 54.20), (-1.20, 55.20), (-1.80, 56.20), (-2.40, 57.20),
+    (-1.90, 58.20), (-1.30, 59.20), (-1.00, 60.60), (1.00, 60.80),
+    (3.00, 60.80), (4.80, 60.70), (5.30, 59.60), (6.30, 58.30),
+    (7.80, 57.80), (8.60, 56.80), (8.20, 55.60), (8.00, 54.60),
+    (7.20, 53.80), (5.60, 53.35), (4.60, 52.90), (3.90, 51.90),
+    (2.60, 51.25)])
+NS_OPEN_SEGMENTS = [(24, 0), (10, 13)]
+#: demos/demo_2d_north_sea.py: tide-gauge stations (lat, lon), its time
+#: step and export interval at 40 km, the Manning coefficient
+NS_STATIONS = {"aberdeen": (57.14, -2.08), "lowestoft": (52.47, 1.75),
+               "delfzijl": (53.33, 6.93)}
+NS_RES_KM, NS_DT = 40.0, 3600.0
+NS_MANNING, NS_OMEGA = 3.0e-02, 7.292e-05
+NS_INIT_DATE = (2022, 1, 1)
+NS_TPXO_NAME = "h_synthetic_tpxo.nc"
+
+
+def _point_in_polygon(pts, poly):
+    """Vectorised ray casting (north_sea_mesh.py:46-57)."""
+    x, y = pts[:, 0], pts[:, 1]
+    inside = np.zeros(len(pts), dtype=bool)
+    n = len(poly)
+    for i in range(n):
+        x0, y0 = poly[i]
+        x1, y1 = poly[(i + 1) % n]
+        cond = (y0 > y) != (y1 > y)
+        xint = (x1 - x0) * (y - y0) / (y1 - y0 + 1e-300) + x0
+        inside ^= cond & (x < xint)
+    return inside
+
+
+@functools.lru_cache(maxsize=2)
+def north_sea_mesh_arrays(resolution_km=NS_RES_KM):
+    """``make_north_sea_mesh`` of demos/north_sea_mesh.py:60-157 without
+    its Mesh2d: returns ``(coords, cells, markers, coord_system)``,
+    ``markers`` the boundary-marker function of edge midpoints (100 open
+    ocean, 200 coast).  The distance of each lattice point to the
+    boundary is taken in chunks (the same numbers, a bounded memory at
+    3.2 km).  Cached: the arrays are read, never written."""
+    from scipy.spatial import Delaunay
+
+    from thetis_tpu_torch.utils.coordsys import UTMCoordinateSystem
+
+    cs = UTMCoordinateSystem(utm_zone=30)
+    res = resolution_km * 1e3
+    poly_xy = np.array([cs.to_xy(lo, la) for lo, la in NS_OUTLINE])
+    bpts = []
+    for i in range(len(poly_xy)):
+        a = poly_xy[i]
+        b = poly_xy[(i + 1) % len(poly_xy)]
+        nseg = max(1, int(round(np.linalg.norm(b - a) / res)))
+        for k in range(nseg):
+            bpts.append(a + (b - a) * (k / nseg))
+    bpts = np.asarray(bpts)
+    x0, y0 = poly_xy.min(axis=0) - res
+    x1, y1 = poly_xy.max(axis=0) + res
+    xs = np.arange(x0, x1, res)
+    ys = np.arange(y0, y1, res * np.sqrt(3) / 2)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    X[:, 1::2] += 0.5 * res
+    grid = np.stack([X.ravel(), Y.ravel()], axis=1)
+    inside = _point_in_polygon(grid, poly_xy)
+    d2b = np.concatenate([
+        np.min(np.linalg.norm(grid[i:i + 4096, None, :] - bpts[None, :, :],
+                              axis=-1), axis=1)
+        for i in range(0, len(grid), 4096)])
+    interior = grid[inside & (d2b > 0.55 * res)]
+    pts = np.concatenate([bpts, interior])
+    cells = Delaunay(pts).simplices
+    keep = _point_in_polygon(pts[cells].mean(axis=1), poly_xy)
+    p0, p1, p2 = pts[cells[:, 0]], pts[cells[:, 1]], pts[cells[:, 2]]
+    area2 = np.abs((p1 - p0)[:, 0] * (p2 - p0)[:, 1]
+                   - (p1 - p0)[:, 1] * (p2 - p0)[:, 0])
+    keep &= area2 > 0.05 * res * res
+    cells = cells[keep]
+    used = np.unique(cells.ravel())
+    remap = -np.ones(len(pts), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    coords = pts[used]
+    cells = remap[cells]
+    open_lines = []
+    for i0, i1 in NS_OPEN_SEGMENTS:
+        idx = [i0]
+        j = i0
+        while j != i1:
+            j = (j + 1) % len(NS_OUTLINE)
+            idx.append(j)
+        open_lines.append(poly_xy[idx])
+
+    def markers(mids):
+        m = np.full(len(mids), 200, dtype=np.int32)
+        for line in open_lines:
+            dmin = np.full(len(mids), np.inf)
+            for k in range(len(line) - 1):
+                a, b = line[k], line[k + 1]
+                ab = b - a
+                tpar = np.clip(((mids - a) @ ab) / max(ab @ ab, 1e-300),
+                               0.0, 1.0)
+                proj = a + tpar[:, None] * ab
+                dmin = np.minimum(dmin, np.linalg.norm(mids - proj, axis=1))
+            m[dmin < 0.3 * res] = 100
+        return m
+
+    return coords, cells.astype(np.int32), markers, cs
+
+
+def write_north_sea_tpxo(path):
+    """The demo's synthetic TPXO-format constituent file, M2 and S2
+    (demo_2d_north_sea.py:90-124), in netCDF3."""
+    from scipy.io import netcdf_file
+
+    lon_ax = np.linspace(-5.0, 12.0, 35)
+    lat_ax = np.linspace(49.0, 62.0, 27)
+    LON, LAT = np.meshgrid(lon_ax, lat_ax, indexing="ij")
+    amp_m2 = 1.2 + 0.3 * np.sin(np.deg2rad(LON))
+    pha_m2 = np.deg2rad(LON * 8.0)
+    amp_s2 = np.full_like(LON, 0.4)
+    pha_s2 = np.deg2rad(LON * 8.0 + 30)
+    h_re = np.stack([amp_m2 * np.cos(pha_m2), amp_s2 * np.cos(pha_s2)])
+    h_im = np.stack([-amp_m2 * np.sin(pha_m2), -amp_s2 * np.sin(pha_s2)])
+    with netcdf_file(path, "w") as f:
+        f.createDimension("nc", 2)
+        f.createDimension("nct", 4)
+        f.createDimension("nx", len(lon_ax))
+        f.createDimension("ny", len(lat_ax))
+        con = f.createVariable("con", "c", ("nc", "nct"))
+        con[0, :] = np.frombuffer(b"m2  ", dtype="S1")
+        con[1, :] = np.frombuffer(b"s2  ", dtype="S1")
+        f.createVariable("lon_z", "d", ("nx",))[:] = lon_ax
+        f.createVariable("lat_z", "d", ("ny",))[:] = lat_ax
+        f.createVariable("hRe", "d", ("nc", "nx", "ny"))[:] = h_re
+        f.createVariable("hIm", "d", ("nc", "nx", "ny"))[:] = h_im
+
+
+def north_sea_solver(device, dtype, outdir, resolution_km=NS_RES_KM,
+                     dt=NS_DT, steps=24, exports=True, export_every=1,
+                     params=None, station_hdf5=False):
+    """demos/demo_2d_north_sea.py through the port, as the demo builds
+    it: the shelf bathymetry, Manning drag, Coriolis from latitude, DIRK22
+    semi-implicit, the TPXO file written to ``outdir`` and read back by
+    ``TPXOTidalBoundaryForcing`` on the open boundary (tag 100), and the
+    three tide-gauge stations evaluated every step.  ``steps`` steps of
+    ``dt``, an export every ``export_every`` steps (``exports`` False:
+    ``no_exports``; ``station_hdf5``: the stations write their HDF5
+    series).  Returns ``(solver, update_forcings, stations)``."""
+    import datetime
+
+    from thetis_tpu_torch.model.callback import TimeSeriesCallback2D
+    from thetis_tpu_torch.model.forcing import TPXOTidalBoundaryForcing
+    from thetis_tpu_torch.utils.timezone import FixedTimeZone
+
+    coords, cells, markers, cs = north_sea_mesh_arrays(resolution_km)
+    mesh2d = Mesh2d(coords, cells, boundary_markers=markers,
+                    name="north_sea_synthetic", device=device, dtype=dtype)
+    P1 = FunctionSpace(mesh2d, "CG", 1)
+    lon, lat = cs.get_mesh_lonlat_function(mesh2d)
+    lon, lat = np.asarray(lon), np.asarray(lat)
+    bathy = Function(P1, name="Bathymetry", data=np.clip(
+        20.0 + 150.0 * np.clip((lat - 50.0) / 12.0, 0, 1) ** 2
+        + 30.0 * np.cos(np.deg2rad(lon) * 3), 10.0, 700.0))
+    manning = Function(P1, name="Manning coefficient").assign(NS_MANNING)
+    coriolis = Function(P1, name="Coriolis forcing").interpolate(
+        2 * NS_OMEGA * np.sin(lat * np.pi / 180.0))
+    s = FlowSolver2d(mesh2d, bathy)
+    o = s.options
+    o.element_family = "dg-dg"
+    o.polynomial_degree = 1
+    o.coriolis_frequency = coriolis
+    o.manning_drag_coefficient = manning
+    o.horizontal_velocity_scale = Constant(1.5)
+    o.use_lax_friedrichs_velocity = True
+    o.simulation_export_time = export_every * dt
+    o.simulation_end_time = steps * dt
+    o.swe_timestepper_type = "DIRK22"
+    o.swe_timestepper_options.use_semi_implicit_linearization = True
+    if params is not None:
+        o.swe_timestepper_options.solver_parameters = params
+    o.timestep = dt
+    o.fields_to_export = ["elev_2d", "uv_2d"]
+    o.no_exports = not exports
+    o.output_directory = os.path.join(outdir, "outputs")
+    init_date = datetime.datetime(*NS_INIT_DATE,
+                                  tzinfo=FixedTimeZone(0, "UTC"))
+    open_nodes = np.unique(
+        mesh2d.facet_verts_np[mesh2d.facet_marker_np == 100].ravel())
+    tpxo = os.path.join(outdir, NS_TPXO_NAME)
+    os.makedirs(outdir, exist_ok=True)
+    if not os.path.exists(tpxo):
+        write_north_sea_tpxo(tpxo)
+    tide = TPXOTidalBoundaryForcing(
+        np.stack([lat[open_nodes], lon[open_nodes]], axis=-1), init_date,
+        constituents=["M2", "S2"], data_dir=outdir, elev_file=NS_TPXO_NAME)
+    elev_bc = Function(P1, name="tidal elevation")
+    s.bnd_functions["shallow_water"] = {100: {"elev": elev_bc}, 200: {}}
+
+    def update_forcings(t):
+        vals = np.zeros(mesh2d.nv)
+        vals[open_nodes] = tide.set_tidal_field(t)
+        elev_bc.data = torch.as_tensor(vals, dtype=dtype, device=device)
+
+    update_forcings(0.0)
+    s.assign_initial_conditions(elev=elev_bc)
+    stations = {}
+    for name, (slat, slon) in NS_STATIONS.items():
+        x, y = cs.to_xy(slon, slat)
+        stations[name] = TimeSeriesCallback2D(
+            s, ["elev_2d"], float(x), float(y), name, append_to_log=False,
+            export_to_hdf5=station_hdf5)
+        s.add_callback(stations[name], "timestep")
+    return s, update_forcings, stations
+
+
+#: phase 29b: the North Sea at 104,423 cells, dt scaled with the
+#: resolution (the demo's wave CFL), 1 warm-up + 12 steps, an export every
+#: 4 steps
+NS_FINE_KM = 3.2
+NS_FINE_STEPS = 12
+NS_FINE_EXPORT_EVERY = 4
+NS_STEPS = 24                           # 29a: the demo's day, hourly
+NS_FINE_NC = 104423
+#: the ERA5 case of 29d: a 10 m wind of ~8 m/s and 1010 hPa over the
+#: North Sea, two hourly records
+ERA5_LON, ERA5_LAT = np.linspace(-5.0, 12.0, 18), np.linspace(62.0, 49.0, 14)
+
+
+def have_h5py():
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def h5py_text():
+    if have_h5py():
+        import h5py
+
+        return (f"h5py {h5py.__version__} is installed: every part of "
+                "phase 29 runs")
+    return ("h5py is not installed on this machine: phase 29 leaves out the "
+            "HDF5 checkpoints, load_state (29b's restart and 29c's "
+            "checkpoint cases), DiagnosticHDF5 (the stations' HDF5 series) "
+            "and the NetCDF4 reader; it runs the VTK and NPZ exporters, the "
+            "stations without HDF5, the NetCDF3 TPXO and ERA5 forcing and "
+            "the kernels")
+
+
+def drop_hdf5(s):
+    """Without h5py the solver's HDF5 checkpoint exporter cannot write;
+    the phase removes it (the code picks no other format)."""
+    if not have_h5py():
+        s.exporters.pop("hdf5", None)
+
+
+def timed(obj, name, acc, sync=True):
+    """Wrap ``obj.name`` so that each call's wall seconds (device work
+    queued before it finished first) are appended to ``acc``."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        acc.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, run)
+
+
+def count_rows(s, stations):
+    """Record each station evaluation's time (``evaluate`` wrapped)."""
+    rows = {name: [] for name in stations}
+    for name, cb in stations.items():
+        ev = cb.evaluate
+
+        def evaluate(index=None, ev=ev, name=name):
+            ev(index)
+            rows[name].append(s.simulation_time)
+
+        cb.evaluate = evaluate
+    return rows
+
+
+def export_files(outdir):
+    """{series: number of files} under a solver's output directory (its
+    non-empty subdirectories)."""
+    out = {}
+    for sub in sorted(os.listdir(outdir)):
+        path = os.path.join(outdir, sub)
+        if os.path.isdir(path) and os.listdir(path):
+            out[sub] = len(os.listdir(path))
+    return out
+
+
+def north_sea_bounds(tag, s):
+    """tests/test_north_sea.py's checks."""
+    e, u = s.fields.elev_2d.data, s.fields.uv_2d.data
+    if not (bool(torch.isfinite(e).all()) and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"{tag}: non-finite fields")
+    umax, emax = float(u.abs().max()), float(e.abs().max())
+    if not (1e-3 < umax < 10.0 and emax < 10.0):
+        raise AssertionError(f"{tag}: |u|max {umax}, |e|max {emax}")
+    if len(s.callbacks["timestep"]) != 3:
+        raise AssertionError(f"{tag}: {len(s.callbacks['timestep'])} "
+                             "station callbacks")
+    return umax, emax
+
+
+def fine_dt():
+    return NS_DT * NS_FINE_KM / NS_RES_KM
+
+
+def fine_solver(dev, outdir, exports):
+    """29b's case: the North Sea at 3.2 km in f32 (Krylov budget F32_PARAMS,
+    an rtol f32 reaches), 1 + NS_FINE_STEPS steps."""
+    s, uf, st = north_sea_solver(
+        dev, torch.float32, outdir, resolution_km=NS_FINE_KM, dt=fine_dt(),
+        steps=1 + NS_FINE_STEPS, exports=exports,
+        export_every=NS_FINE_EXPORT_EVERY, params=NewtonParameters(
+            **F32_PARAMS), station_hdf5=exports and have_h5py())
+    drop_hdf5(s)
+    if not exports:
+        s.callbacks["timestep"].clear()
+    return s, uf, st
+
+
+def phase_io(smi, dev=None):
+    """Phase 29 (a, b): the North Sea demo through the port with its I/O
+    on, at the demo's size and at the bench's width.  Returns the ring
+    kernels' launches of both runs (counts set to 0 before 29a)."""
+    import tempfile
+
+    dev = dev or torch.device("cuda")
+    log(f"[29 io] {h5py_text()}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    reset_counts()
+    # (a) the demo at its own size: 40 km, f64, 24 hourly steps
+    s, uf, st = north_sea_solver(dev, torch.float64, os.path.join(tmp, "a"),
+                                 steps=NS_STEPS, station_hdf5=have_h5py())
+    drop_hdf5(s)
+    rows = count_rows(s, st)
+    _, t_a = sync_time(lambda: s.iterate(update_forcings=uf))
+    umax, emax = north_sea_bounds("29a", s)
+    if any(len(r) != NS_STEPS for r in rows.values()):
+        raise AssertionError(f"29a: station rows {rows}")
+    files = export_files(s.options.output_directory)
+    want = {"Elevation2d": NS_STEPS + 2, "Velocity2d": NS_STEPS + 2}
+    if have_h5py():
+        want["hdf5"] = 2 * (NS_STEPS + 1) + 1
+    if files != want:
+        raise AssertionError(f"29a: export files {files}, expected {want}")
+    n_a = counts()
+    a_ii = float(SCHEMES["DIRK22"]().a[-1][-1])
+    log(f"[29a north sea] 40 km ({s.mesh2d.nc} cells), f64, DIRK22 "
+        f"(implicit wave CFL {s._wave_cfl(a_ii * s.dt):.2f} -> "
+        f"{type(s.timestepper.coarse).__name__}), "
+        f"{NS_STEPS} steps of {NS_DT:g} s with the TPXO boundary every step,"
+        f" hourly exports and 3 stations: {t_a:.2f} s; |u|max {umax:.4f} in"
+        f" (1e-3, 10), |e|max {emax:.4f} < 10; station rows "
+        f"{ {k: len(v) for k, v in rows.items()} } (one per step); export "
+        f"files {files}; ring_mv {n_a['ring_mv']}, block_diag_mv "
+        f"{n_a['block_diag_mv']} launches; stations "
+        + ", ".join(f"{k} {float(v()[0][0]):+.4f} m" for k, v in st.items()))
+    # (b) the bench's width: 104,423 cells, f32, with and without I/O
+    out = {}
+    for io in (True, False):
+        s, uf, st = fine_solver(dev, os.path.join(tmp, f"b{int(io)}"), io)
+        if s.mesh2d.nc != NS_FINE_NC:
+            raise AssertionError(f"29b: {s.mesh2d.nc} cells")
+        acc = {"vtk": [], "hdf5": [], "stations": []}
+        for k, m in s.exporters.items():
+            timed(m, "export", acc[k])
+        for cb in st.values():
+            timed(cb, "evaluate", acc["stations"])
+        o = s.options
+        o.simulation_end_time = s.dt
+        _, t_warm = sync_time(lambda: s.iterate(update_forcings=uf))
+        for v in acc.values():
+            v.clear()
+        n0 = counts()
+        o.simulation_end_time = (1 + NS_FINE_STEPS) * s.dt
+        _, t = sync_time(lambda: s.iterate(update_forcings=uf))
+        n1 = counts()
+        per = {k: (n1[k] - n0[k]) / NS_FINE_STEPS for k in KERNELS}
+        require_hand_kernels("29b", {k: n1[k] - n0[k] for k in KERNELS},
+                             NS_FINE_STEPS)
+        if io:
+            north_sea_bounds("29b", s)
+        out[io] = dict(s=s, t=t, per=per, acc=acc, warm=t_warm,
+                       stats=dict(s.timestepper.stats))
+    s = out[True]["s"]
+    coeff = a_ii * s.dt
+    pc = type(s.timestepper.coarse).__name__
+    ms = {io: out[io]["t"] / NS_FINE_STEPS * 1e3 for io in out}
+    acc = out[True]["acc"]
+    marks = s.mesh2d.facet_marker_np
+    log(f"[29b north sea] {NS_FINE_KM:g} km: {s.mesh2d.nc} cells, "
+        f"{s.mesh2d.nv} vertices, {int((marks == 100).sum())} open / "
+        f"{int((marks == 200).sum())} coast "
+        f"facets, {9 * s.mesh2d.nc} DOF, f32, dt {s.dt:g} s: implicit wave "
+        f"CFL {s._wave_cfl(coeff):.2f} -> {pc}; 1 + {NS_FINE_STEPS} steps: "
+        f"{ms[True]:.1f} ms/step with I/O (VTK every "
+        f"{NS_FINE_EXPORT_EVERY} steps, 3 stations every step), "
+        f"{ms[False]:.1f} ms/step without; ring_mv "
+        f"{out[True]['per']['ring_mv']:.1f}, block_diag_mv "
+        f"{out[True]['per']['block_diag_mv']:.1f} launches a step; last "
+        f"step's FGMRES cycles {out[True]['stats'].get('ksp_cycles')} over "
+        f"{out[True]['stats'].get('stages')} stages; card: {smi}")
+    log(f"[29b io costs] seconds per export: VTK "
+        + (f"{np.mean(acc['vtk']):.3f} (x{len(acc['vtk'])}, two fields of "
+           f"{3 * s.mesh2d.nc} points)" if acc["vtk"] else "none")
+        + (f", HDF5 {np.mean(acc['hdf5']):.3f} (x{len(acc['hdf5'])})"
+           if acc["hdf5"] else ", HDF5 not run (no h5py)")
+        + f"; seconds per station evaluation {np.mean(acc['stations']):.5f} "
+        f"(x{len(acc['stations'])}); setup-free warm-up step with the "
+        f"initial export {out[True]['warm']:.2f} s, without "
+        f"{out[False]['warm']:.2f} s; card: {smi}")
+    if have_h5py():
+        io_restart_fine(dev, tmp, out[True]["s"])
+    n = counts()
+    shutil_rmtree(tmp)
+    return n
+
+
+def shutil_rmtree(path):
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def io_restart_fine(dev, tmp, s_full):
+    """29b's restart (h5py only): a fresh solver ``load_state(2)`` from
+    the run with I/O, run on to its end, against it, beside a second
+    uninterrupted run."""
+    def run_from_start(outdir):
+        s, uf, _ = fine_solver(dev, outdir, True)
+        s.options.simulation_end_time = s.dt
+        s.iterate(update_forcings=uf)
+        s.options.simulation_end_time = (1 + NS_FINE_STEPS) * s.dt
+        s.iterate(update_forcings=uf)
+        return s
+
+    s2 = run_from_start(os.path.join(tmp, "b2"))
+    r, uf, _ = fine_solver(dev, os.path.join(tmp, "b3"), True)
+    r.load_state(2, outputdir=s_full.options.output_directory)
+    t_load = r.simulation_time
+    r.options.simulation_end_time = (1 + NS_FINE_STEPS) * r.dt
+    r.iterate(update_forcings=uf)
+    a, b, c = s_full._get_state(), s2._get_state(), r._get_state()
+    spread = {k: max_rel(b[k], a[k]) for k in a}
+    dist = {k: max_rel(c[k], a[k]) for k in a}
+    if any(dist[k] > spread[k] for k in a):  # bit-equal where spread is 0
+        raise AssertionError(f"29b restart: {dist} beyond {spread}")
+    log(f"[29b restart] load_state(2) at t = {t_load:g} s, run on to "
+        f"{r.simulation_time:g} s: max|diff|/max {dist}; a second "
+        f"uninterrupted run {spread}")
+
+
+def profile_io():
+    """The profiler's view of one step of 29b's case (3.2 km, f32, no I/O)
+    after a warm-up step, from a fresh process (``python3 chip_smoke.py
+    profile_io``, started in phase 21's block)."""
+    import tempfile
+
+    phase_device()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_profile_")
+    s, uf, _ = fine_solver(dev, tmp, False)
+    device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
+    timed_steps(s, 1, uf)
+    uf(s.simulation_time + s.dt)
+    st = s._get_state()
+    args = (s.simulation_time, st, s._gather_swe_fields(),
+            s._gather_tracer_extra(st), s._gather_bnd("shallow_water"),
+            s._gather_bnd("tracer"))
+    torch.cuda.synchronize()
+    rows = device_rows(lambda: s._advance(*args))
+    shutil_rmtree(tmp)
+    if not rows:
+        raise RuntimeError("the profiler saw no device kernel in 29b's step")
+    hand = {k: (sum(c for _, c, key in rows if f"{k}_kernel" in key),
+                sum(us for us, _, key in rows if f"{k}_kernel" in key) / 1e3)
+            for k in ("ring_mv", "block_diag_mv")}
+    tag = "[29b profile]"
+    log(f"{tag} one step (the coupled advance) of the North Sea at "
+        f"{NS_FINE_KM:g} km ({s.mesh2d.nc}"
+        f" cells, f32, DIRK22, no I/O): {sum(r[1] for r in rows)} device "
+        f"kernels, device busy {sum(r[0] for r in rows) / 1e3:.3f} ms; hand "
+        f"kernels (launches, device ms) {hand}; top by device time:")
+    for us, cnt, key in rows[:5]:
+        log(f"{tag}   {us / 1e3:8.3f} ms  x{cnt:<5d} {key[:90]}")
+
+
+def north_sea_kernel_shapes():
+    """The ring kernels at the North Sea's own ring table (3.2 km: an
+    unstructured mesh whose 883 boundary facets leave mirror slots)."""
+    coords, cells, markers, _ = north_sea_mesh_arrays(NS_FINE_KM)
+    mesh = Mesh2d(coords, cells, boundary_markers=markers,
+                  device=torch.device("cuda"), dtype=torch.float64)
+    nb = int(mesh.facet_is_boundary_np.sum())
+    return (f"nc={mesh.nc} (North Sea {NS_FINE_KM:g} km, {nb} boundary "
+            "facets)", phase_kernel_ring(0, 0, False, mesh))
+
+
+def checkpoint2d_solver(device, outdir, t_end):
+    """tests/test_checkpoint.py's 2D case (10x2, CN, f64)."""
+    lx, ly = 40e3, 2e3
+    mesh = RectangleMesh(10, 2, lx, ly, device=device, dtype=torch.float64)
+    P1 = FunctionSpace(mesh, "CG", 1)
+    s = FlowSolver2d(mesh, Function(P1).assign(20.0))
+    o = s.options
+    o.timestep = 50.0
+    o.simulation_export_time = 200.0
+    o.simulation_end_time = t_end
+    o.swe_timestepper_type = "CrankNicolson"
+    o.output_directory = outdir
+    o.fields_to_export = []
+    o.fields_to_export_hdf5 = ["elev_2d", "uv_2d"]
+    s.assign_initial_conditions(elev=Function(P1).interpolate(
+        lambda x, y: torch.exp(-(((x - lx / 2) / 6000.0) ** 2))))
+    return s
+
+
+def checkpoint3d_solver(device, outdir, t_end, exports=True):
+    """tests/test_checkpoint.py's 3D case (8x2 x 4 layers, f64), the VTK
+    series on, and with ``exports`` the 3D callbacks of
+    tests/test_solver3d.py's callback case."""
+    from thetis_tpu_torch.model.callback import (TimeSeriesCallback3D,
+                                                 TransectCallback,
+                                                 VerticalProfileCallback)
+
+    lx = 20e3
+    mesh = RectangleMesh(8, 2, lx, 4e3, device=device, dtype=torch.float64)
+    P1 = FunctionSpace(mesh, "CG", 1)
+    s = FlowSolver(mesh, Function(P1).assign(20.0), 4)
+    o = s.options
+    o.timestep = 30.0
+    o.simulation_export_time = 300.0
+    o.simulation_end_time = t_end
+    o.output_directory = outdir
+    s.initialize()
+    drop_hdf5(s)
+    s.assign_initial_conditions(
+        elev=Function(P1).interpolate(
+            lambda x, y: 0.4 * torch.exp(-(((x - lx / 2) / 3e3) ** 2))),
+        temp=Function(FunctionSpace(mesh, "DG", 1)).interpolate(
+            lambda x, y: 10.0 + 2.0 * x / lx).data, salt=35.0)
+    cbs = []
+    if exports:
+        cbs = [VerticalProfileCallback(s, ["temp_3d", "uv_3d"], 10e3, 2e3,
+                                       "mid", append_to_log=False),
+               TransectCallback(s, ["temp_3d"], [5e3, 10e3, 15e3],
+                                [2e3] * 3, "axis", append_to_log=False),
+               TimeSeriesCallback3D(s, ["uv_3d"], 7e3, 1e3, -5.0, "sta",
+                                    append_to_log=False)]
+        for cb in cbs:
+            s.add_callback(cb)
+    return s, cbs
+
+
+def phase_io_checks(smi, gpu=None):
+    """Phase 29 (c, d), f64, after phase 21's block: the I/O paths on the
+    card (``gpu``) against the CPU, the HDF5 checkpoint cases where h5py
+    is installed, and ERA5 forcing set into the card's fields."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_checks_")
+    devs = (("gpu", gpu or torch.device("cuda")), ("cpu", torch.device("cpu")))
+    # (c) one step of the North Sea at 40 km, GPU against CPU, stations too
+    out = {}
+    for key, dv in devs:
+        s, uf, st = north_sea_solver(dv, torch.float64,
+                                     os.path.join(tmp, f"ns_{key}"),
+                                     steps=1, exports=False)
+        s.iterate(update_forcings=uf)
+        out[key] = (s._get_state(), {k: torch.as_tensor(v()[0])
+                                     for k, v in st.items()})
+    errs = compare("29c north sea", out["gpu"][0], out["cpu"][0],
+                   PARITY_RTOL)
+    serr = compare("29c stations", out["gpu"][1], out["cpu"][1], PARITY_RTOL)
+    log(f"[29c north sea parity] 40 km, f64, one DIRK22 step with the TPXO "
+        f"boundary: GPU against CPU max|diff|/max {errs}; stations {serr} "
+        f"<= {PARITY_RTOL:g}: ok")
+    # (c) the 3D case with its VTK series and 3D callbacks (tridiag)
+    res = {}
+    for key, dv in devs:
+        s, cbs = checkpoint3d_solver(dv, os.path.join(tmp, f"3d_{key}"),
+                                     600.0)
+        reset_counts()
+        s.iterate()
+        n = counts()
+        res[key] = (s._get_state(), [torch.as_tensor(np.concatenate(
+            [np.ravel(v) for v in cb()])) for cb in cbs], n,
+            export_files(s.options.output_directory))
+    if res["gpu"][2]["tridiag"] < 1 and devs[0][1].type == "cuda":
+        raise AssertionError(f"29c 3D: no tridiag launch {res['gpu'][2]}")
+    if res["gpu"][3] != res["cpu"][3]:
+        raise AssertionError(f"29c 3D: export files {res['gpu'][3]} vs "
+                             f"{res['cpu'][3]}")
+    errs = compare("29c 3D", res["gpu"][0], res["cpu"][0], PARITY_RTOL)
+    cerr = compare("29c 3D callbacks", dict(enumerate(res["gpu"][1])),
+                   dict(enumerate(res["cpu"][1])), PARITY_RTOL)
+    log(f"[29c 3D exports] tests/test_checkpoint.py's 3D case, 20 steps "
+        f"with the VTK series and the profile, transect and station "
+        f"callbacks at 3 exports: tridiag {res['gpu'][2]['tridiag']} "
+        f"launches; files {res['gpu'][3]} as the CPU's; GPU against CPU "
+        f"max|diff|/max {errs}; callbacks {cerr} <= {PARITY_RTOL:g}: ok")
+    if have_h5py():
+        io_checkpoint_cases(tmp, devs)
+    else:
+        log("[29c checkpoints] not run: h5py is not installed (the 2D and 3D"
+            " restarts on the card, card -> CPU and CPU -> card)")
+    io_forcing_check(tmp, devs)
+    shutil_rmtree(tmp)
+
+
+def io_checkpoint_cases(tmp, devs):
+    """29c's checkpoint cases (h5py only): the 2D case restarted on the
+    card against its uninterrupted run, a card checkpoint continued on
+    the CPU and the reverse, and the 3D case restarted on the card."""
+    gpu = dict(devs)["gpu"]
+
+    def full_and_restart(make, dv, tag, t_mid, t_end):
+        d = os.path.join(tmp, tag)
+        a = make(dv, d + "_full", t_end)
+        a.iterate()
+        make(dv, d, t_mid).iterate()
+        b = make(dv, d, t_end)
+        b.load_state(2)
+        b.iterate()
+        return a, b
+
+    def make3d(dv, d, t):
+        return checkpoint3d_solver(dv, d, t, exports=False)[0]
+
+    for tag, make, t_mid, t_end in (("2d", checkpoint2d_solver, 400.0, 800.0),
+                                    ("3d", make3d, 600.0, 1200.0)):
+        a, b = full_and_restart(make, gpu, tag, t_mid, t_end)
+        sa, sb = a._get_state(), b._get_state()
+        dist = {k: max_rel(sb[k], sa[k]) for k in sa}
+        if max(dist.values()) > 1e-12:
+            raise AssertionError(f"29c {tag} restart on the card: {dist}")
+        same = all(torch.equal(sa[k], sb[k]) for k in sa)
+        log(f"[29c {tag} checkpoint] restart at export 2 on the card against"
+            f" the uninterrupted run: max|diff|/max {dist} <= 1e-12 "
+            f"({'bit-equal' if same else 'not bit-equal'}): ok")
+    ref = {k: checkpoint2d_solver(dv, os.path.join(tmp, f"x_{k}"), 800.0)
+           for k, dv in devs}
+    for s in ref.values():
+        s.iterate()
+    for src, dst in (("gpu", "cpu"), ("cpu", "gpu")):
+        c = checkpoint2d_solver(dict(devs)[dst], os.path.join(tmp, f"y_{dst}"),
+                                800.0)
+        c.load_state(2, outputdir=ref[src].options.output_directory)
+        c.iterate()
+        errs = compare(f"29c {src} -> {dst}", c._get_state(),
+                       {k: v.cpu() for k, v in ref[src]._get_state().items()},
+                       PARITY_RTOL)
+        log(f"[29c checkpoint {src} -> {dst}] export 2 written on the {src} "
+            f"and continued on the {dst} against the {src}'s own "
+            f"continuation: max|diff|/max {errs} <= {PARITY_RTOL:g}: ok")
+
+
+def write_era5(path):
+    """A synthetic ERA5-format netCDF3 file: u10/v10/msl over descending
+    latitude, a ``valid_time`` axis of two hourly records."""
+    from scipy.io import netcdf_file
+
+    LAT, LON = np.meshgrid(ERA5_LAT, ERA5_LON, indexing="ij")
+    with netcdf_file(path, "w") as f:
+        f.createDimension("valid_time", 2)
+        f.createDimension("latitude", len(ERA5_LAT))
+        f.createDimension("longitude", len(ERA5_LON))
+        tv = f.createVariable("valid_time", "d", ("valid_time",))
+        tv[:] = [0.0, 3600.0]
+        tv._attributes["units"] = b"seconds since 2022-01-01 00:00:00"
+        f.createVariable("longitude", "d", ("longitude",))[:] = ERA5_LON
+        f.createVariable("latitude", "d", ("latitude",))[:] = ERA5_LAT
+        dims = ("valid_time", "latitude", "longitude")
+        for name, grid in (
+                ("u10", 8.0 + 2.0 * np.sin(np.deg2rad(4 * LON))),
+                ("v10", -3.0 + 0.2 * (LAT - 55.0)),
+                ("msl", 101000.0 + 300.0 * np.cos(np.deg2rad(6 * LAT)))):
+            f.createVariable(name, "d", dims)[:] = np.stack([grid, 1.1 * grid])
+
+
+def io_forcing_check(tmp, devs):
+    """29d: ERA5 wind stress and pressure set into the card's fields (the
+    host's numpy values, to 1e-12), then one North Sea step with them on
+    the card against the CPU."""
+    import datetime
+
+    from thetis_tpu_torch.model.forcing_adapters import ERA5Interpolator
+    from thetis_tpu_torch.utils.coordsys import UTMCoordinateSystem
+    from thetis_tpu_torch.utils.timezone import FixedTimeZone
+
+    path = os.path.join(tmp, "era5_000.nc")
+    write_era5(path)
+    init = datetime.datetime(*NS_INIT_DATE, tzinfo=FixedTimeZone(0, "UTC"))
+    out, errs = {}, []
+    for key, dv in devs:
+        s, uf, _ = north_sea_solver(dv, torch.float64,
+                                    os.path.join(tmp, f"era5_{key}"),
+                                    steps=1, exports=False)
+        mesh = s.mesh2d
+        lon, lat = UTMCoordinateSystem(utm_zone=30).get_mesh_lonlat_function(
+            mesh)
+        wind = Function(FunctionSpace(mesh, "CG", 1, dim=2), name="wind")
+        pres = Function(FunctionSpace(mesh, "CG", 1), name="pressure")
+        era = ERA5Interpolator(np.stack([lon, lat], axis=-1),
+                               os.path.join(tmp, "era5_*.nc"), init,
+                               wind_stress_field=wind,
+                               atm_pressure_field=pres)
+        vals = era.set_fields(1800.0)
+        for f, name in ((wind, "wind_stress"),
+                        (pres, "atmospheric_pressure")):
+            if f.data.device.type != dv.type or f.data.dtype != torch.float64:
+                raise AssertionError(f"29d: {name} on {f.data.device}")
+            ref = torch.as_tensor(vals[name])
+            err = float((f.data.cpu() - ref).abs().max()) / float(
+                ref.abs().max())
+            if err > 1e-12:
+                raise AssertionError(f"29d: {name} {err:.2e} off the host's")
+            errs.append(f"{dv.type} {name} {err:.1e}")
+        s.options.wind_stress = wind
+        s.options.atmospheric_pressure = pres
+        s.iterate(update_forcings=uf)
+        out[key] = s._get_state()
+    perr = compare("29d era5 step", out["gpu"], out["cpu"], PARITY_RTOL)
+    log(f"[29d forcing] ERA5 (netCDF3, descending latitude, valid_time) "
+        f"wind stress and pressure at t = 1800 s into CG1 fields: "
+        f"max|field - host numpy|/max {', '.join(errs)} <= 1e-12; one North "
+        f"Sea step with them, GPU against CPU max|diff|/max {perr} <= "
+        f"{PARITY_RTOL:g}: ok")
+
+
+def io_only():
+    """Phase 29 alone (``python3 chip_smoke.py io``): the device, the
+    build, 29a-b, the ring kernels at the North Sea's ring table, the
+    profile process and 29c-d; ends with the same last line."""
+    name = phase_device()
+    smi = card()
+    phase_build()
+    t_all = time.perf_counter()
+    procs = start_cases([["profile_io"]])
+    try:
+        t0 = time.perf_counter()
+        n = phase_io(smi)
+        log(f"[29 io] launches {n}; 29a-b {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        north_sea_kernel_shapes()
+        log(f"[29 io] ring kernels at the North Sea's table "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_io_checks(smi)
+        log(f"[phase_io_checks] {time.perf_counter() - t0:.1f} s")
+    finally:
+        finish_cases(procs)
+    log(f"[29 io] phase 29 in all {time.perf_counter() - t_all:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def adjoint_only():
     """Phase 28 alone (``python3 chip_smoke.py adjoint``): the device,
     the build and the adjoint's phases; ends with the same last line."""
@@ -4218,6 +5025,9 @@ def main():
     ring = [(f"nc={NX3 * NY3 * 2}", phase_kernel_ring(NX3, NY3, True)),
             (f"nc={NX * NY * 2}", phase_kernel_ring(NX, NY, False)),
             (f"nc={rofi.nc} (ROFI)", phase_kernel_ring(0, 0, False, rofi))]
+    t29 = time.perf_counter()
+    ring.append(north_sea_kernel_shapes())  # phase 29c's kernel check
+    t29 = time.perf_counter() - t29
     cols = NX3 * NY3 * 2 * 3  # (cell, node) columns of the 3D mesh
     rows = NZ3 + 1
     # the velocity solve as the step makes it first, then the tracer
@@ -4288,12 +5098,24 @@ def main():
     t0 = time.perf_counter()
     new["adjoint"] = phase_adjoint(smi)
     log(f"[phase_adjoint] {time.perf_counter() - t0:.1f} s")
+    # I/O and forcing: 29a-b, their counts set to 0 just before 29a
+    t0 = time.perf_counter()
+    new["io"] = phase_io(smi)
+    t29 += time.perf_counter() - t0
+    log(f"[phase_io] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_cases()
     log(f"[phase_cases] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_adjoint_checks(smi)
     log(f"[phase_adjoint_checks] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_io_checks(smi)
+    t29 += time.perf_counter() - t0
+    log(f"[phase_io_checks] {time.perf_counter() - t0:.1f} s")
+    log(f"[29 io] phase 29 in all (29a-b, the ring kernels at the North "
+        f"Sea's table, 29c-d; the profile process ran in phase 21's block) "
+        f"{t29:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -4321,7 +5143,8 @@ def main():
                                     "dg-cg": new["dg-cg"][k],
                                     "hdiv": new["hdiv"][k],
                                     "sphere": new["sphere"][k],
-                                    "adjoint": new["adjoint"][k]},
+                                    "adjoint": new["adjoint"][k],
+                                    "io": new["io"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4373,5 +5196,9 @@ if __name__ == "__main__":
         channel_inversion_case()
     elif sys.argv[1:] == ["adjoint"]:
         adjoint_only()
+    elif sys.argv[1:] == ["io"]:
+        io_only()
+    elif sys.argv[1:] == ["profile_io"]:
+        profile_io()
     else:
         main()

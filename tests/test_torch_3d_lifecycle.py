@@ -9,6 +9,8 @@ Tolerances: fields after ``iterate()`` and after the split steps rtol 1e-8
 of each field's scale (as ``tests/test_torch_3d_slice.py``); volumes and
 tracer masses rtol 1e-12 (host sums of the same numbers); the time-step
 arithmetic rtol 1e-14 (Python floats on both sides); counters equal."""
+import os
+
 import numpy as np
 import pytest
 
@@ -380,17 +382,35 @@ def test_split_mode_subcycles_the_explicit_2d_mode(split_run):
     assert np.abs(split_run["got"]["uv"]).max() > 1e-3  # the wave moved
 
 
-# -- what stays unported --------------------------------------------------
-def test_exports_raise_naming_a10():
-    tm = tgen.RectangleMesh(3, 2, 9e3, 6e3, device="cpu", dtype=F64)
-    ts = flowsolver3d_from_numpy(tm, 20.0, 2, dict(timestep=60.0))
+# -- what was unported until A10 ----------------------------------------
+def test_exports_raise_naming_a10(tmp_path):
+    """The exports, ``load_state`` and the monitors' HDF5 series raised
+    naming A10 until it was ported; with the reference's default
+    ``no_exports=False`` they run: ``iterate()`` writes the series and the
+    checkpoints, ``load_state(0)`` restores the start, and the volume
+    monitor writes its HDF5 series (parity in
+    ``test_torch_io_restart3d.py`` and ``test_torch_io_callbacks.py``)."""
+    # 4x2: nc (16) differs from nv (15), so no DG array reads as CG1
+    tm = tgen.RectangleMesh(4, 2, 9e3, 6e3, device="cpu", dtype=F64)
+    ts = flowsolver3d_from_numpy(
+        tm, 20.0, 2, dict(timestep=60.0, simulation_export_time=60.0,
+                          simulation_end_time=60.0,
+                          output_directory=str(tmp_path)))
     assert ts.options.no_exports is False  # the reference's default
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\)"):
-        ts.iterate()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\)"):
-        ts.load_state(0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\)"):
-        tcb.VolumeConservation3DCallback(ts, export_to_hdf5=True)
+    ts.initialize()
+    ts.assign_initial_conditions(elev=0.1)
+    start = {k: v.clone() for k, v in ts._get_state().items()}
+    ts.iterate()
+    assert ts.iteration == 1
+    assert sorted(os.listdir(tmp_path / "Elevation2d")) == [
+        "Elevation2d.pvd", "Elevation2d_00000.vtu", "Elevation2d_00001.vtu"]
+    ts.load_state(0)
+    assert ts.simulation_time == 0.0 and ts.iteration == 0
+    for k, v in ts._get_state().items():
+        assert torch.equal(v, start[k]), k
+    cb = tcb.VolumeConservation3DCallback(ts, export_to_hdf5=True)
+    cb.evaluate()
+    assert (tmp_path / "diagnostic_volume3d.hdf5").exists()
 
 
 def test_constant_boundary_value_is_gathered():

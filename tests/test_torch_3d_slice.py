@@ -13,6 +13,8 @@ Tolerance: rtol 1e-8 times each field's scale, on every state key: both
 packages take the same Krylov path in the barotropic solve, and the
 limiter's branches do not flip at roundoff, so the fields differ by
 summation-order roundoff only (measured ~1e-14 relative)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -251,19 +253,31 @@ def test_ported_options_step(name):
     assert float((out["temp_3d"] - state["temp_3d"]).abs().max()) > 0
 
 
-#: options that select code the port does not have, with the ROADMAP item
-#: the error must name
+#: options that selected code the port did not have, with the ROADMAP
+#: item that ported it (the exporters, A10, were the last)
 UNPORTED = {
     "exports": (dict(no_exports=False), "A10"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise(name):
+def test_unported_options_raise(name, tmp_path):
+    """Each option that raised until its item was ported now initializes:
+    the exporters write the VTK series and the HDF5 checkpoints (restart
+    parity in ``test_torch_io_restart3d.py``)."""
     options, item = UNPORTED[name]
-    _, ts = port_solver(options)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-        ts.initialize()
+    assert item == "A10"
+    _, ts = port_solver(dict(options, output_directory=str(tmp_path)))
+    ts.initialize()
+    assert sorted(ts.exporters) == ["hdf5", "vtk"]
+    ts.export()
+    from thetis_tpu_torch.model.field_defs import field_metadata
+
+    assert sorted(os.listdir(tmp_path / "hdf5")) == sorted(
+        [field_metadata[k]["filename"] + "_00000.h5"
+         for k in ts._checkpoint_field_keys()] + ["mesh.h5"])
+    assert sorted(os.listdir(tmp_path)) == ["Elevation2d", "Velocity2d",
+                                            "hdf5"]
 
 
 def test_unknown_dt_mode_raises():

@@ -138,11 +138,12 @@ def test_cn_step_with_separate_old_fields():
         close(got[k], a[k])
 
 
-def test_unported_paths_raise():
-    """What the 2D model still lacks: the HDF5 restart (A10).  Every
-    element family is ported (A8): the dg-cg elevation is the CG P2
-    space, and each family initializes; the adjoint (A9) is ported
-    (``test_assembled_step_gradient``)."""
+def test_unported_paths_raise(tmp_path):
+    """Nothing of the 2D model is left unported.  Every element family is
+    ported (A8): the dg-cg elevation is the CG P2 space, and each family
+    initializes; the adjoint (A9) is ported
+    (``test_assembled_step_gradient``); the HDF5 restart (A10), which
+    raised last, restores each family's checkpoint."""
     from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d
 
     _, tst, _, _ = build("rect", "bench")
@@ -150,12 +151,19 @@ def test_unported_paths_raise():
     assert TFS(eq.mesh, "CG", 2).node_count == eq.mesh.nv + eq.mesh.nf
     for family in ("dg-cg", "rt-dg", "bdm-dg"):
         s = FlowSolver2d(eq.mesh, 50.0)
-        s.options.no_exports = True
+        s.options.no_exports = False
+        s.options.fields_to_export = []
+        s.options.output_directory = str(tmp_path / family)
         s.options.timestep = 1.0
         s.options.element_family = family
         s.initialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        s.export()
+        saved = {k: v.clone() for k, v in s._get_state().items()}
+        for k in ("uv_2d", "elev_2d"):
+            s.fields[k].data = s.fields[k].data + 1.0
         s.load_state(0)
+        for k, v in s._get_state().items():
+            assert torch.equal(v, saved[k]), (family, k)
 
 
 @pytest.mark.parametrize("kind", ["rect", "periodic"])

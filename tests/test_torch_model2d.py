@@ -320,8 +320,9 @@ def test_facade_square_mesh_goes_to_the_card(gen, monkeypatch):
 
 
 def _opts_refused():
-    """What the 2D model still refuses, with its ROADMAP item: the HDF5
-    restart."""
+    """The 2D entry points that raised naming their ROADMAP item until it
+    was ported, with that item: A10's HDF5 restart was the last.  Each
+    now runs (``test_unported_options_raise``)."""
     return {"load_state": (lambda s: s.load_state(0), "A10")}
 
 
@@ -412,16 +413,27 @@ def _port_solver(**opts):
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
-def test_unported_options_raise(what):
-    """Every element family and mesh of the reference is ported (A8), and
-    the adjoint (A9); the entry points of A10 still raise naming their
-    item."""
-    s = _port_solver()
-    s.options.timestep = 1.0
+def test_unported_options_raise(what, tmp_path):
+    """Every element family and mesh of the reference is ported (A8), the
+    adjoint (A9) and I/O (A10): the entry points that raised naming their
+    item run.  ``load_state(0)`` restores the checkpoint of the initial
+    export into a solver stepped on (parity with the reference in
+    ``test_torch_io_restart.py``)."""
+    s = _port_solver(no_exports=False, output_directory=str(tmp_path),
+                     fields_to_export=[], timestep=1.0)
     s.initialize()
+    s.assign_initial_conditions(elev=0.1)
+    start = {k: v.clone() for k, v in s._get_state().items()}
+    s.export()
+    s.options.simulation_end_time = 2.0
+    s.iterate()
+    assert s.simulation_time == 2.0
     call, item = REFUSED[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call(s)
+    assert item == "A10"
+    call(s)
+    assert s.simulation_time == 0.0 and s.i_export == 1
+    for k, v in s._get_state().items():
+        assert torch.equal(v, start[k]), k
 
 
 @pytest.mark.parametrize("what", sorted(PORTED))
@@ -482,20 +494,36 @@ def test_ported_options_step(what):
 
 
 @pytest.mark.parametrize("what", ["exporters", "load_state", "hdf5"])
-def test_unported_entry_points_raise(what):
-    s = _port_solver()
-    if what == "exporters":
-        s.options.no_exports = False
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            s.initialize()
-        return
+def test_unported_entry_points_raise(what, tmp_path):
+    """A10's entry points, which raised until they were ported, run: the
+    exporters write the VTK series and the HDF5 checkpoints,
+    ``load_state`` restores a checkpoint, and a monitor writes its HDF5
+    series (parity in ``test_torch_io_*.py``)."""
+    s = _port_solver(no_exports=False, output_directory=str(tmp_path),
+                     timestep=1.0)
     s.initialize()
-    if what == "load_state":
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            s.load_state(0)
+    if what == "exporters":
+        assert sorted(s.exporters) == ["hdf5", "vtk"]
+        s.export()
+        assert sorted(os.listdir(tmp_path)) == ["Elevation2d", "Velocity2d",
+                                                "hdf5"]
+        assert sorted(os.listdir(tmp_path / "hdf5")) == [
+            "Elevation2d_00000.h5", "Velocity2d_00000.h5", "mesh.h5"]
+    elif what == "load_state":
+        s.assign_initial_conditions(elev=0.25)
+        s.export()
+        s.fields.elev_2d.data = torch.zeros_like(s.fields.elev_2d.data)
+        s.load_state(0)
+        assert float(s.fields.elev_2d.data.min()) == 0.25
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            TVolume(s, export_to_hdf5=True)
+        cb = TVolume(s, export_to_hdf5=True)
+        s.simulation_time = 3.0
+        cb.evaluate()
+        import h5py
+
+        with h5py.File(tmp_path / "diagnostic_volume2d.hdf5") as f:
+            assert f["time"][:].tolist() == [[3.0]]
+            assert f["relative_difference"][:].tolist() == [[0.0]]
 
 
 @pytest.mark.parametrize("control", ["initial_elev", "initial_uv",

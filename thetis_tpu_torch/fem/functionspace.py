@@ -13,7 +13,8 @@ import torch
 
 from .reference_element import ELEMENTS
 
-__all__ = ["FunctionSpace", "Function", "SpatialCoordinate"]
+__all__ = ["FunctionSpace", "VectorFunctionSpace", "get_functionspace",
+           "Function", "SpatialCoordinate"]
 
 
 class FunctionSpace:
@@ -134,6 +135,17 @@ class FunctionSpace:
     def __repr__(self):
         kind = f"Vector({self.dim})" if self.dim > 1 else ""
         return f"{kind}{self.family}{self.degree} on {self.mesh.name}"
+
+
+def VectorFunctionSpace(mesh, family, degree, dim=2):
+    """A vector-valued :class:`FunctionSpace` (ref L156-157)."""
+    return FunctionSpace(mesh, family, degree, dim=dim)
+
+
+def get_functionspace(mesh, h_family, h_degree, vector=False, dim=2,
+                      **kwargs):
+    """The reference's helper (``thetis/utility.py:163``; ref L160-162)."""
+    return FunctionSpace(mesh, h_family, h_degree, dim=dim if vector else 1)
 
 
 class Function:

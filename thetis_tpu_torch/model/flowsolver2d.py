@@ -50,10 +50,13 @@ sediment, NH or farms), as in the reference; none of these families is
 on the assembled (ring-kernel) path.
 
 ``differentiable_forward`` builds the adjoint's forward model
-(:mod:`thetis_tpu_torch.adjoint`).  Not ported yet, and raising
-``NotImplementedError`` naming the ROADMAP item: exporters
-(``no_exports=False``), the diagnostic HDF5 series and ``load_state``
-(A10).
+(:mod:`thetis_tpu_torch.adjoint`).  Exports (``no_exports=False``) write
+the VTK (or NPZ) series of ``fields_to_export`` and the HDF5 checkpoints
+that ``load_state`` restarts from (``model/exporter.py``); with
+``export_diagnostics`` the monitors write their HDF5 series.  One
+departure from the reference: after ``load_state`` the restored state is
+not exported again, so the series goes on at the uninterrupted run's
+indices (the reference's 2D restart writes it once more, one index on).
 """
 import time as time_mod
 from types import SimpleNamespace
@@ -82,20 +85,16 @@ from ..solvers.newton import NewtonParameters
 from ..timeintegration.rungekutta import SCHEMES
 from ..timeintegration.steppers import CrankNicolson, get_stepper
 from ..utils.constant import Constant
-from ..utils.log import print_output
+from ..utils.log import print_output, set_log_directory
 from .callback import (CallbackManager, TracerMassConservation2DCallback,
                        TracerOvershootCallBack, VolumeConservation2DCallback)
+from .exporter import load_checkpoint, solver_exporters
 from .field_defs import FieldDict, field_metadata
 from .options import ModelOptions2d
 from .sediment_model import SedimentModel
 from .turbines import DiscreteTidalTurbineFarm, TidalTurbineFarm
 
 __all__ = ["FlowSolver2d"]
-
-
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to thetis_tpu_torch yet (ROADMAP {item})")
 
 
 class FlowSolver2d:
@@ -585,13 +584,23 @@ class FlowSolver2d:
         self._build_advance()
         self._timestepper_created = True
 
+    def _checkpoint_field_keys(self):
+        """Every prognostic field of a bit-exact restart (ref
+        ``solver2d.py:874-921``)."""
+        keys = ["elev_2d", "uv_2d"] + list(self.tracer_labels)
+        if self.solve_sediment:
+            keys.append("sediment_2d")
+        if self.solve_exner:
+            keys.append("bathymetry_2d")
+        if self.solve_nh:
+            keys += ["q_2d", "w_2d"]
+        return keys
+
     def create_exporters(self):
-        """ref ``solver2d.py:704-730``: the VTK/HDF5 exporters are not
-        ported; a run must set ``options.no_exports = True``."""
-        if not self.options.no_exports:
-            raise _unported("field exporters (options.no_exports=False)",
-                            "A10")
-        self.exporters = {}
+        """The visualization series and the HDF5 checkpoints (ref
+        ``solver2d.py:704-730``; :func:`.exporter.solver_exporters`)."""
+        self.exporters = solver_exporters(self.options, self.fields,
+                                          self._checkpoint_field_keys())
         self._exporters_created = True
 
     def initialize(self):
@@ -964,8 +973,36 @@ class FlowSolver2d:
 
         return forward
 
-    def load_state(self, *args, **kwargs):
-        raise _unported("load_state (HDF5 checkpoints)", "A10")
+    def load_state(self, i_export, outputdir=None, t=None, iteration=None):
+        """Restart from the HDF5 checkpoints of export ``i_export``: every
+        prognostic field (tracers, sediment, the Exner bed, NH q/w) is
+        restored, on the mesh's device and in its dtype, so the continued
+        run is the uninterrupted one (ref ``solver2d.py:820-921``).  The
+        solver is initialized first and the fields' tensors are replaced
+        after: no solver holds a field's old tensor.  Departure from the
+        reference: the restored state counts as exported, so ``iterate()``
+        does not write it again and the series goes on at the index and
+        time of the uninterrupted run (ROADMAP C)."""
+        if not self._initialized:
+            self.initialize()
+        tload = load_checkpoint(
+            self.fields, (self.options.fields_to_export_hdf5
+                          or self._checkpoint_field_keys()),
+            outputdir or self.options.output_directory, i_export)
+        self.i_export = i_export
+        self.simulation_time = (
+            t if t is not None
+            else (tload if tload is not None
+                  else i_export * self.options.simulation_export_time))
+        self.iteration = (
+            iteration if iteration is not None
+            else int(np.ceil(self.simulation_time / self.dt)))
+        self.next_export_t = (self.simulation_time
+                              + self.options.simulation_export_time)
+        self.i_export += 1
+        for e in self.exporters.values():
+            e.set_next_export_ix(self.i_export)
+        self._initial_export_done = True
 
     # ------------------------------------------------------------------
     def assign_initial_conditions(self, elev=None, uv=None, **tracers):
@@ -1146,16 +1183,22 @@ class FlowSolver2d:
             self.initialize()
         o = self.options
         self._resolve_end_date()
-        # auto-attach the conservation callback (ref L1040-1085)
+        if o.log_output and not o.no_exports:
+            set_log_directory(o.output_directory)
+        # auto-attach the monitors (ref L1040-1085); their series go to
+        # HDF5 under export_diagnostics
+        dump_hdf5 = o.export_diagnostics and not o.no_exports
         if o.check_volume_conservation_2d:
-            self.add_callback(VolumeConservation2DCallback(self))
+            self.add_callback(VolumeConservation2DCallback(
+                self, export_to_hdf5=dump_hdf5))
         if o.check_tracer_conservation:
             for label in self.tracer_labels:
-                self.add_callback(TracerMassConservation2DCallback(label,
-                                                                   self))
+                self.add_callback(TracerMassConservation2DCallback(
+                    label, self, export_to_hdf5=dump_hdf5))
         if o.check_tracer_overshoot:
             for label in self.tracer_labels:
-                self.add_callback(TracerOvershootCallBack(label, self))
+                self.add_callback(TracerOvershootCallBack(
+                    label, self, export_to_hdf5=dump_hdf5))
 
         t_epsilon = 1e-5
         self.next_export_t = self.simulation_time + o.simulation_export_time

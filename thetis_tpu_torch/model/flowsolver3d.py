@@ -30,15 +30,15 @@ CN solve.
 Entered as the reference is: ``FlowSolver(mesh2d, depth, nz)``,
 ``options.update({...})``, ``bnd_functions``,
 ``assign_initial_conditions(...)``, ``iterate(update_forcings=...)``
-(callbacks and the conservation monitors at every export,
-``options.no_exports = True``); or, a step at a time, ``initialize()``,
+(callbacks, the conservation monitors and the exporters at every
+export; ``load_state`` restarts from the HDF5 checkpoints, LeapFrogAM3's
+history reseeded from the restored fields as in the reference); or, a
+step at a time, ``initialize()``,
 ``_get_state()``, ``_gather_swe_fields()``, ``_gather_bnd_sw()``, then
 ``_step(state, swe_fields, bnd_sw)``.  The 3D boundary values
 (``bnd_functions['momentum' | 'salt' | 'temp']``) are read once, when the
 step is built, as in the reference; the 2D ones at every gather.
 
-Not ported yet, and raising ``NotImplementedError`` when selected:
-exporters (``no_exports=False``) and ``load_state`` (ROADMAP A10).
 The CG ``P1_2d`` space of the reference is not created: the step never
 uses it.
 """
@@ -70,6 +70,7 @@ from ..utils.log import print_output
 from ..utils.profiling import timed_stage
 from .callback import (CallbackManager, TracerMassConservation3DCallback,
                        TracerOvershootCallBack, VolumeConservation3DCallback)
+from .exporter import load_checkpoint, solver_exporters
 from .field_defs import FieldDict
 from .options import ModelOptions2d
 
@@ -128,11 +129,6 @@ class ModelOptions3d(ModelOptions2d):
         ).items():
             object.__setattr__(self, k, v)
         self._freeze()
-
-
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to thetis_tpu_torch yet (ROADMAP {item})")
 
 
 def _lf_key(key):
@@ -248,9 +244,6 @@ class FlowSolver:
             raise ValueError(f"unknown 3D time stepper {ts!r}")
         if str(o.dt_mode) not in ("3d", "2d", "split"):
             raise ValueError(f"unknown dt_mode {o.dt_mode!r}")
-        if not o.no_exports:
-            raise _unported("field exporters (options.no_exports=False)",
-                            "A10")
 
     def create_equations(self):
         self._check_options()
@@ -300,13 +293,53 @@ class FlowSolver:
     def add_callback(self, callback, eval_interval="export"):
         self.callbacks.add(callback, eval_interval)
 
-    def export(self):
-        """Evaluate the export callbacks; no field exporter is ported
-        (ROADMAP A10: ``_check_options`` refuses ``no_exports=False``)."""
-        self.callbacks.evaluate(mode="export")
+    def _checkpoint_field_keys(self):
+        """Every prognostic field of a bit-exact 3D restart (ref
+        ``solver.py:1058-1059``); LeapFrogAM3's history is not among
+        them (``_get_state`` reseeds it)."""
+        o = self.options
+        keys = ["elev_2d", "uv_2d", "uv_3d", "w_3d", "salt_3d", "temp_3d"]
+        if o.use_modesplit_2d:
+            keys.append("split_residual_2d")
+        if o.use_turbulence:
+            keys += ["tke_3d", "psi_3d", "nu_v_3d", "mu_v_3d"]
+        return keys
 
-    def load_state(self, *args, **kwargs):
-        raise _unported("load_state (HDF5 checkpoints)", "A10")
+    def create_exporters(self):
+        """The visualization series and the HDF5 checkpoints (ref
+        ``solver.py:1006-1073``; :func:`.exporter.solver_exporters`)."""
+        self.exporters = solver_exporters(self.options, self.fields,
+                                          self._checkpoint_field_keys())
+
+    def export(self):
+        """The export callbacks, then every exporter."""
+        self.callbacks.evaluate(mode="export")
+        for e in self.exporters.values():
+            e.export(time=self.simulation_time, iteration=self.iteration)
+
+    def load_state(self, i_export, outputdir=None, t=None, iteration=None):
+        """Restart from the HDF5 checkpoints of export ``i_export``: every
+        prognostic field is restored on the mesh's device, in its dtype,
+        after the solver is initialized (ref ``solver.py:1006-1073``).
+        The restored state counts as exported."""
+        if not self._initialized:
+            self.initialize()
+        tload = load_checkpoint(
+            self.fields, (self.options.fields_to_export_hdf5
+                          or self._checkpoint_field_keys()),
+            outputdir or self.options.output_directory, i_export)
+        self.i_export = i_export
+        self.simulation_time = (
+            t if t is not None
+            else (tload if tload is not None
+                  else i_export * self.options.simulation_export_time))
+        self.iteration = (
+            iteration if iteration is not None
+            else int(np.ceil(self.simulation_time / self.dt)))
+        self.i_export += 1
+        for e in self.exporters.values():
+            e.set_next_export_ix(self.i_export)
+        self._initial_export_done = True
 
     # -- CFL time-step bounds: host arithmetic ---------------------------
     #: stability coefficients of the coupled integrators
@@ -440,6 +473,7 @@ class FlowSolver:
                                    or default_params),
                 assembled_solve=assembled)
         self._build_step()
+        self.create_exporters()
         self._initialized = True
 
     def assign_initial_conditions(self, elev=None, uv=None, salt=None,

@@ -2,9 +2,10 @@
 plus a bare output logger with a memory buffer that can be replayed into
 ``outputs/log`` once the output directory is known (ref L75-147).
 
-Copied from ``thetis_tpu/utils/log.py`` (plain Python); only the logger
-names differ, so both packages can log in one process without sharing
-handlers or buffers.
+Copied from ``thetis_tpu/utils/log.py`` (plain Python); the logger names
+differ, so both packages can log in one process without sharing
+handlers or buffers, and a log file gets one handler however often it is
+set.
 """
 import logging
 import sys
@@ -37,11 +38,15 @@ def print_output(*args, **kwargs):
 
 
 def set_log_directory(path):
-    """Attach a file handler replaying the memory buffer (ref L75-147)."""
+    """Attach a file handler replaying the memory buffer (ref L75-147);
+    once per log file (a solver's ``iterate()`` calls this every time)."""
     import os
 
     os.makedirs(path, exist_ok=True)
     logfile = os.path.join(path, "log")
+    if any(getattr(h, "baseFilename", None) == os.path.abspath(logfile)
+           for h in output_logger.handlers):
+        return
     fh = logging.FileHandler(logfile, mode="w")
     fh.setFormatter(logging.Formatter("%(message)s"))
     for msg in _memory_buffer:
