@@ -66,7 +66,10 @@ PyTorch version:
   tide-gauge stations every step, at the demo's size and on a 104,423-cell
   coastline mesh (DIRK22 stages on the ring matvec and block-Jacobi
   kernels), the ring kernels at that mesh's ring table, and ERA5 forcing
-  set into the card's fields.
+  set into the card's fields;
+* the repo's 42 demos and examples, each from its own source at its
+  regression size through ``run_script`` (the scripts rewritten by
+  ``REWRITE_TABLE``, nothing else), each against its own checks.
 
 Phases, each printing its lines:
 
@@ -261,6 +264,29 @@ Phases, each printing its lines:
     and one North Sea step with them, GPU against CPU.  The phase prints
     its seconds.
 
+30. the demos and examples (``python3 chip_smoke.py examples`` runs it
+    alone): ``Function.interpolate`` on the card (a callable of card
+    tensors, a numpy one), the rewrite table, then every script of
+    demos/ and examples/ but the helper modules (``example_scripts``),
+    f64, each in a process of its own (``python3 chip_smoke.py example
+    <path>``), eight at a time, the longest first; the whole script
+    leaves out the seven that an earlier phase runs at the same size
+    (``EXAMPLES_RUN_EARLIER``) and starts the others, among phase 21's
+    block, once that block's profile processes have ended, beside the
+    f64 checks and at a lower priority.  Each prints its seconds, its
+    solvers' steps and its ring_mv / block_diag_mv / tridiag launches
+    (each process sets its counts to 0 just before its script); each
+    script's own checks must hold, but for the two that the reference
+    fails at regression size, which must fail the same way
+    (``fails_as_the_reference``); a 3D script must launch the ring
+    kernels, and the tridiagonal kernel exactly where its options make
+    the vertical solves implicit; ``examples/waveEq2d/channel2d_waveEq``
+    and ``examples/baroclinic_channel`` run on the card, where each must
+    launch the ring kernels, and on the CPU, every field to 1e-10 of its
+    largest value (``python3 chip_smoke.py example_parity <path>``).
+    The kernels line's ``launches_by_path`` gains ``examples``, the sum
+    over the scripts.
+
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -269,15 +295,18 @@ failed check raises, so the script exits non-zero and prints no result;
 without a CUDA device it exits 1 at once.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
+import ast
 import contextlib
 import functools
 import gc
+import glob
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import types
 import warnings
 from types import SimpleNamespace
 
@@ -2443,34 +2472,92 @@ def standing_wave_case():
         f"{rel:.4e} <= {PPP_SW_BOUND:g}; last step {s.timestepper.stats}")
 
 
-def start_cases(modes):
-    """Start each ``chip_smoke.py`` mode in a process of its own, all at
-    once (small, launch-bound f64 runs: their host time overlaps)."""
-    return [(m, subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__)] + m,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for m in modes]
+def start_cases(modes, at_once=None, after=None, one_thread=False):
+    """Start each ``chip_smoke.py`` mode in a process of its own, its
+    output to files (a script prints much): all at once, or ``at_once``
+    at a time in the order given; with ``after`` (an earlier start's
+    handle), the first once every process of ``after`` has ended.  A
+    thread of this process starts each as a slot frees, so the caller's
+    own work runs meanwhile.  ``one_thread``: each process on one host
+    thread (its work is the card's; the thread pools of many processes
+    on shared cores spin).  Returns the handle :func:`finish_cases`
+    waits on."""
+    import tempfile
+    import threading
+
+    env = (dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                OPENBLAS_NUM_THREADS="1") if one_thread else None)
+    h = SimpleNamespace(pending=[list(m) for m in modes], started=[],
+                        done=threading.Event(), stop=threading.Event(),
+                        t0=time.perf_counter())
+
+    def schedule():
+        while not h.stop.is_set():
+            live = [c for c in h.started if c.p.poll() is None]
+            for c in h.started:
+                if c.end is None and c.p.returncode is not None:
+                    c.end = time.perf_counter() - h.t0
+            free = at_once is None or len(live) < at_once
+            if h.pending and free and (after is None or after.done.is_set()):
+                mode = h.pending.pop(0)
+                out = tempfile.TemporaryFile("w+")
+                err = tempfile.TemporaryFile("w+")
+                h.started.append(SimpleNamespace(
+                    mode=mode, out=out, err=err, end=None,
+                    start=time.perf_counter() - h.t0, p=subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__)] + mode,
+                        stdout=out, stderr=err, text=True, env=env)))
+                continue
+            if not h.pending and not live:
+                break
+            time.sleep(0.2)
+        h.done.set()
+
+    h.thread = threading.Thread(target=schedule, daemon=True)
+    h.thread.start()
+    return h
 
 
-def finish_cases(procs, timeout=600):
-    """Wait for :func:`start_cases`' processes, pass their lines on and
-    fail if one failed; every process is ended."""
-    failed = []
+def finish_cases(*handles, timeout=600):
+    """Wait, ``timeout`` seconds at most, for the processes of
+    :func:`start_cases`' ``handles``; pass on the lines of theirs that
+    start with "[" (and each process's span) and return them; fail if
+    one failed or ran late.  Every process is ended."""
+    t0 = time.perf_counter()
+    lines, failed = [], []
     try:
-        for mode, p in procs:
-            out, err = p.communicate(timeout=timeout)
-            for line in out.splitlines():
-                if line.startswith("["):
-                    log(line)
-            if p.returncode != 0:
-                failed.append(f"{' '.join(mode)}:\n{err[-3000:]}")
+        for h in handles:
+            h.thread.join(max(timeout - (time.perf_counter() - t0), 0.0))
+            if h.thread.is_alive():
+                failed.append(f"past {timeout} s: " + ", ".join(
+                    " ".join(c.mode) for c in h.started
+                    if c.p.poll() is None) + f"; not started {h.pending}")
+                continue
+            for c in h.started:
+                c.out.seek(0)
+                c.err.seek(0)
+                for line in c.out.read().splitlines():
+                    if line.startswith("["):
+                        lines.append(line)
+                        log(line)
+                log(f"[cases] {' '.join(c.mode)}: {c.start:.1f} s to "
+                    f"{c.end:.1f} s")
+                if c.p.returncode != 0:
+                    failed.append(f"{' '.join(c.mode)}:\n"
+                                  f"{c.err.read()[-3000:]}")
     finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        for h in handles:
+            h.stop.set()
+            h.thread.join()
+            for c in h.started:
+                if c.p.poll() is None:
+                    c.p.kill()
+                    c.p.wait()
+                c.out.close()
+                c.err.close()
     if failed:
         raise RuntimeError("case processes failed:\n" + "\n".join(failed))
+    return lines
 
 
 def standing_wave_ppp(device):
@@ -2592,36 +2679,54 @@ def phase_other_steppers(smi):
     return total
 
 
-def phase_cases():
+def phase_cases(smi, scripts, then=()):
     """The f64 checks that time nothing, after every timed phase: the
     Thacker case (``tests/test_thacker.py``: CN, DIRK22, BackwardEuler)
     and PPP on the standing wave (``tests/test_standing_wave.py``, 20
     steps), each launch-bound and in a process of its own, all at once,
-    with the tidal-array and solitary-wave examples, the profile of
-    phases 22-24 (``profile_slice9``), the dg-cg standing waves (25a),
-    the H(div) and Williamson cases (26a, 27a) and the profile of phases
-    25-27 (``profile_families``); meanwhile, in this process on 4 CPU
-    threads, the GPU-against-CPU parity of phase 7 (3D), phase 11 (2D,
-    with the configurations of phases 18-27), SteadyState and
-    SSPIMEX."""
-    procs = start_cases([["thacker", k] for k in THACKER_BOUNDS]
-                        + [["standing_wave"], ["tidal_array"],
-                           ["solitary_wave"], ["profile_slice9"]]
-                        + [["dgcg_wave", k] for k in DGCG_WAVES]
-                        + [["dgcg_volume"], ["hdiv_cases"], ["profile_families"],
-                           ["profile_io"]])
+    with the tidal-array and solitary-wave examples, the dg-cg standing
+    waves (25a), the H(div) and Williamson cases (26a, 27a), and the
+    profiles of phases 22-24 (``profile_slice9``), 25-27
+    (``profile_families``) and 29 (``profile_io``); phase 30's
+    ``scripts`` (:func:`example_modes`), :data:`EXAMPLES_AT_ONCE` at a
+    time, once the profiles have ended (their device times are read
+    without the scripts beside them); meanwhile, in this process on 4
+    CPU threads, the GPU-against-CPU parity of phase 7 (3D), phase 11
+    (2D, with the configurations of phases 18-27), SteadyState and
+    SSPIMEX, then the phases ``then`` (each called with ``smi``).
+    Returns phase 30's launches and each in-process phase's seconds."""
+    t30 = time.perf_counter()
     threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 4))
+    seconds, handles = {}, []
     try:
+        handles.append(start_cases([["profile_slice9"], ["profile_families"],
+                                    ["profile_io"]]))
+        handles.append(start_cases(
+            [["thacker", k] for k in THACKER_BOUNDS]
+            + [["standing_wave"], ["tidal_array"], ["solitary_wave"]]
+            + [["dgcg_wave", k] for k in DGCG_WAVES]
+            + [["dgcg_volume"], ["hdiv_cases"]]))
+        handles.append(start_cases(example_modes(scripts), EXAMPLES_AT_ONCE,
+                                   after=handles[0], one_thread=True))
+        torch.set_num_threads(min(threads, 4))
         for phase in (phase_parity3d, phase_model_parity,
                       phase_model_parity_slice, phase_model_parity_slice9,
                       phase_model_parity_families, phase_small_steppers):
             t0 = time.perf_counter()
             phase()
-            log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+            seconds[phase.__name__] = time.perf_counter() - t0
+            log(f"[{phase.__name__}] {seconds[phase.__name__]:.1f} s")
+        torch.set_num_threads(threads)
+        for phase in then:
+            t0 = time.perf_counter()
+            phase(smi)
+            seconds[phase.__name__] = time.perf_counter() - t0
+            log(f"[{phase.__name__}] {seconds[phase.__name__]:.1f} s")
     finally:
         torch.set_num_threads(threads)
-        finish_cases(procs)
+        lines = finish_cases(*handles, timeout=900)
+    return examples_launches(lines, scripts, smi,
+                             time.perf_counter() - t30), seconds
 
 
 def phase_small_steppers():
@@ -4963,6 +5068,604 @@ def io_forcing_check(tmp, devs):
         f"{PARITY_RTOL:g}: ok")
 
 
+# -- phase 30: the repo's demos and examples through the port ------------
+#: modules that scripts import from their own directory; not scripts
+SCRIPT_HELPERS = ("demos/north_sea_mesh.py",
+                  "examples/baroclinic_eddies/diagnostics.py",
+                  "examples/tohoku_inversion/okada.py",
+                  "examples/tohoku_inversion/sources.py")
+#: the only difference between a script's run through the port and the
+#: reference's own run: each ``.py`` of demos/ and examples/ is rewritten
+#: by rows 1-5 (:class:`ToPort`, on its syntax tree); rows 6-7 hold while
+#: the script runs
+REWRITE_TABLE = (
+    ("import thetis_tpu[.m] / from thetis_tpu[.m] import ...",
+     "the same names from thetis_tpu_torch[.m]"),
+    ('import jax.numpy as jnp; __import__("jax.numpy", ...)',
+     "jnp_torch (jnp_module): torch functions that take tensors, numpy "
+     "arrays and numbers and give tensors on the run's device and dtype"),
+    ("import jax", "jax_torch: jit(f) -> f, config.update(...) -> nothing, "
+     "numpy -> jnp_torch"),
+    ("x.at[i].set(v)", "jnp_torch.at_set(x, i, v): x with x[i] = v, "
+     "out of place"),
+    ("x.astype(t)", "jnp_torch.astype(x, t): numpy's astype, or a "
+     "tensor's .to"),
+    ("numpy given a tensor (np.asarray, np.array, a ufunc, an operator "
+     "beside an ndarray)", "a host copy of it, detached (Tensor.__array__ "
+     "while the script runs), as numpy reads the reference's device arrays"),
+    ("a solver's exporters, where h5py is not installed",
+     "the same without the HDF5 checkpoints (as phase 29 runs the North "
+     "Sea demo): the VTK series alone"),
+)
+SHIMS = {"jax.numpy": "_jnp_torch", "jax": "_jax_torch"}
+
+
+class ToPort(ast.NodeTransformer):
+    """Rows 1-5 of :data:`REWRITE_TABLE` on a script's syntax tree."""
+
+    @staticmethod
+    def _shim(attr, *args):
+        return ast.Call(ast.Attribute(ast.Name("_jnp_torch", ast.Load()),
+                                      attr, ast.Load()), list(args), [])
+
+    def visit_Module(self, node):
+        self.generic_visit(node)
+        # the helper functions of the table's rows 4-5
+        node.body.insert(0, ast.Import([ast.alias("_jnp_torch")]))
+        return node
+
+    def visit_Import(self, node):
+        for a in node.names:
+            if a.name in SHIMS:
+                a.asname, a.name = a.asname or a.name, SHIMS[a.name]
+            elif a.name.split(".")[0] == "thetis_tpu":
+                if a.asname is None and "." in a.name:
+                    raise ValueError(f"import {a.name} binds thetis_tpu")
+                a.asname = a.asname or "thetis_tpu"
+                a.name = "thetis_tpu_torch" + a.name[len("thetis_tpu"):]
+        return node
+
+    def visit_ImportFrom(self, node):
+        mod = node.module or ""
+        if mod.split(".")[0] == "thetis_tpu" and node.level == 0:
+            node.module = "thetis_tpu_torch" + mod[len("thetis_tpu"):]
+        elif mod.split(".")[0] == "jax":
+            raise ValueError(f"from {mod} import ...: not in the table")
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        f = node.func
+        if (isinstance(f, ast.Name) and f.id == "__import__" and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value in SHIMS):
+            node.args = [ast.Constant(SHIMS[node.args[0].value])]
+            node.keywords = []
+        elif (isinstance(f, ast.Attribute) and f.attr == "set"
+              and isinstance(f.value, ast.Subscript)
+              and isinstance(f.value.value, ast.Attribute)
+              and f.value.value.attr == "at"):
+            return self._shim("at_set", f.value.value.value,
+                              f.value.slice, *node.args)
+        elif isinstance(f, ast.Attribute) and f.attr == "astype":
+            return self._shim("astype", f.value, *node.args)
+        return node
+
+
+def translate(source):
+    """A script's source rewritten by :data:`REWRITE_TABLE`."""
+    tree = ToPort().visit(ast.parse(source))
+    return ast.unparse(ast.fix_missing_locations(tree))
+
+
+def jnp_module(device, dtype):
+    """jax.numpy as the scripts use it, in torch: each function takes
+    tensors, numpy arrays and numbers and gives tensors on ``device``,
+    floating data in ``dtype`` (integers and booleans keep their kind)."""
+    device = torch.device(device)
+    m = types.ModuleType("_jnp_torch")
+
+    def kind(t):
+        """A numpy, Python or torch dtype as the run's torch dtype."""
+        if isinstance(t, torch.dtype):
+            return t
+        k = np.dtype(t).kind
+        return dtype if k in "fc" else torch.bool if k == "b" else torch.int64
+
+    def asarray(x, dtype=None):
+        if isinstance(x, (list, tuple)) and any(
+                isinstance(e, torch.Tensor) for e in x):
+            t = torch.stack([asarray(e) for e in x])
+        elif isinstance(x, torch.Tensor):
+            t = x.to(device)
+        else:
+            a = np.asarray(x)
+            t = torch.as_tensor(a, dtype=kind(a.dtype), device=device)
+        return t if dtype is None else t.to(kind(dtype))
+
+    def shaped(shape):
+        return tuple(shape) if isinstance(shape, (tuple, list)) else (shape,)
+
+    def full(shape, value, dtype=None):
+        return torch.full(shaped(shape), float(value), device=device,
+                          dtype=kind(dtype or float))
+
+    def zeros(shape, dtype=None):
+        return full(shape, 0.0, dtype)
+
+    def full_like(a, value, dtype=None):
+        a = asarray(a)
+        return torch.full_like(a, float(value),
+                               dtype=a.dtype if dtype is None
+                               else kind(dtype))
+
+    def stack(arrays, axis=0):
+        return torch.stack([asarray(a) for a in arrays], dim=axis)
+
+    def broadcast_to(x, shape):
+        # jax arrays are immutable: a copy, not an expanded view
+        return torch.broadcast_to(asarray(x), shaped(shape)).contiguous()
+
+    def where(cond, a, b):
+        return torch.where(asarray(cond), asarray(a), asarray(b))
+
+    def einsum(spec, *ops):
+        return torch.einsum(spec, *[asarray(o) for o in ops])
+
+    def at_set(x, index, value):
+        index = index if isinstance(index, tuple) else (index,)
+        return asarray(x).index_put(tuple(asarray(i) for i in index),
+                                    asarray(value))
+
+    def astype(x, t):
+        if isinstance(x, torch.Tensor):
+            return x.to(kind(t))
+        return x.astype(t)
+
+    m.__dict__.update(
+        asarray=asarray, array=asarray, full=full, zeros=zeros,
+        full_like=full_like, stack=stack, broadcast_to=broadcast_to,
+        where=where, einsum=einsum, at_set=at_set, astype=astype,
+        pi=math.pi)
+    for name, fn in (("sin", torch.sin), ("cos", torch.cos),
+                     ("sqrt", torch.sqrt), ("log", torch.log),
+                     ("exp", torch.exp), ("arctan", torch.arctan),
+                     ("abs", torch.abs)):
+        m.__dict__[name] = functools.partial(
+            lambda fn, x: fn(asarray(x)), fn)
+    return m
+
+
+def jax_module(jnp):
+    """The three names of ``jax`` the scripts use: ``jit`` (the function
+    itself: the port runs eagerly), ``config.update`` (nothing to set)
+    and ``numpy``."""
+    m = types.ModuleType("_jax_torch")
+    m.jit = lambda f, *a, **k: f
+    m.config = SimpleNamespace(update=lambda *a, **k: None)
+    m.numpy = jnp
+    return m
+
+
+def example_scripts(root=None):
+    """The demos and examples, as paths relative to the repository, less
+    :data:`SCRIPT_HELPERS`."""
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    found = (glob.glob(os.path.join(root, "demos", "*.py"))
+             + glob.glob(os.path.join(root, "examples", "**", "*.py"),
+                         recursive=True))
+    rel = (os.path.relpath(p, root).replace(os.sep, "/") for p in found)
+    return sorted(p for p in rel if p not in SCRIPT_HELPERS)
+
+
+def copy_scripts(dest, rewrite=translate):
+    """Every ``.py`` of demos/ and examples/ under ``dest``, the layout
+    kept (``north_sea.py`` finds ``../../demos``), each passed through
+    ``rewrite`` (None: as it is)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for sub in ("demos", "examples"):
+        for d, _, files in os.walk(os.path.join(root, sub)):
+            for f in files:
+                if not f.endswith(".py"):
+                    continue
+                src = os.path.join(d, f)
+                out = os.path.join(dest, os.path.relpath(src, root))
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                with open(src) as fi:
+                    text = fi.read()
+                with open(out, "w") as fo:
+                    fo.write(text if rewrite is None else rewrite(text))
+
+
+@contextlib.contextmanager
+def script_process_state(path):
+    """A script's run as ``python <path>`` makes it: its directory the
+    working directory, its argv, ``THETIS_REGRESSION_TEST=1``, and its
+    helper modules imported afresh from its tree; all put back after."""
+    helpers = [os.path.splitext(os.path.basename(h))[0]
+               for h in SCRIPT_HELPERS]
+    saved = (os.getcwd(), list(sys.path), sys.argv,
+             os.environ.get("THETIS_REGRESSION_TEST"),
+             {h: sys.modules.pop(h) for h in helpers if h in sys.modules})
+    os.chdir(os.path.dirname(path))
+    sys.argv = [path]
+    os.environ["THETIS_REGRESSION_TEST"] = "1"
+    try:
+        yield
+    finally:
+        cwd, sys.path[:], sys.argv, flag, mods = saved
+        os.chdir(cwd)
+        if flag is None:
+            os.environ.pop("THETIS_REGRESSION_TEST", None)
+        else:
+            os.environ["THETIS_REGRESSION_TEST"] = flag
+        for h in helpers:
+            sys.modules.pop(h, None)
+        sys.modules.update(mods)
+
+
+@contextlib.contextmanager
+def numpy_reads_tensors():
+    """Row 6 of :data:`REWRITE_TABLE`: numpy reads a tensor on any device
+    (a CUDA tensor's own ``__array__`` raises), as it reads the
+    reference's arrays, through a detached host copy."""
+    own = torch.Tensor.__array__
+
+    def host_array(self, dtype=None, copy=None):
+        a = self.detach().cpu().numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+    torch.Tensor.__array__ = host_array
+    try:
+        yield
+    finally:
+        torch.Tensor.__array__ = own
+
+
+@contextlib.contextmanager
+def exporters_without_h5py():
+    """Row 7 of :data:`REWRITE_TABLE`: where h5py is not installed (the
+    card's machine), the solvers' exporters leave out the HDF5
+    checkpoints, which cannot be written there."""
+    from thetis_tpu_torch.model import flowsolver2d, flowsolver3d
+
+    own = flowsolver2d.solver_exporters
+
+    def without_hdf5(*args):
+        exporters = own(*args)
+        exporters.pop("hdf5", None)
+        return exporters
+
+    mods = (flowsolver2d, flowsolver3d)
+    if not have_h5py():
+        for m in mods:
+            m.solver_exporters = without_hdf5
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.solver_exporters = own
+
+
+@contextlib.contextmanager
+def mesh_defaults(device, dtype):
+    """Every mesh constructor's default device and dtype set to the run's
+    (the scripts pass neither, as the reference takes neither): the
+    caller asks for the device; the port's own default is the card."""
+    from thetis_tpu_torch.mesh import generation, gmsh, mesh2d, sphere
+
+    fns = [mesh2d.Mesh2d.__init__, sphere.SphereMesh.__init__,
+           sphere.IcosahedralSphereMesh, gmsh.read_msh, gmsh.Mesh]
+    fns += [getattr(generation, n) for n in generation.__all__]
+    saved = [dict(f.__kwdefaults__) for f in fns]
+    for f in fns:
+        f.__kwdefaults__.update(device=torch.device(device), dtype=dtype)
+    try:
+        yield
+    finally:
+        for f, kw in zip(fns, saved):
+            f.__kwdefaults__ = kw
+
+
+def exec_script(path, namespace=None):
+    """Run the file ``path`` as ``__main__`` in ``namespace`` (a new dict
+    by default), which keeps the globals the script reached if it
+    raises; returns the namespace."""
+    ns = {} if namespace is None else namespace
+    ns.update(__name__="__main__", __file__=path)
+    with open(path) as f:
+        code = compile(f.read(), path, "exec")
+    exec(code, ns)
+    return ns
+
+
+@contextlib.contextmanager
+def solvers_made(classes, made):
+    """Append to the list ``made`` every instance of ``classes`` (each
+    defines its ``__init__``) made while the block runs: a script's
+    solvers, its functions' own among them."""
+    inits = [(c, c.__init__) for c in classes]
+    for c, init in inits:
+        def record(self, *a, _init=init, **k):
+            _init(self, *a, **k)
+            made.append(self)
+
+        c.__init__ = functools.wraps(init)(record)
+    try:
+        yield made
+    finally:
+        for c, init in inits:
+            c.__init__ = init
+
+
+@contextlib.contextmanager
+def jax_shims(device, dtype):
+    """Rows 2-3 of :data:`REWRITE_TABLE` importable while the block runs:
+    ``_jnp_torch`` (:func:`jnp_module`) and ``_jax_torch``."""
+    saved = {k: sys.modules.get(k) for k in SHIMS.values()}
+    jnp = jnp_module(device, dtype)
+    sys.modules.update(_jnp_torch=jnp, _jax_torch=jax_module(jnp))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def run_script(path, device, dtype=torch.float64, namespace=None,
+               solvers=None):
+    """Run the script ``path`` (relative to the repository) through the
+    port on ``device`` in ``dtype``, as ``__main__``, from a copy of
+    demos/ and examples/ rewritten by :data:`REWRITE_TABLE` in a new
+    temporary directory, its globals in ``namespace`` and the solvers it
+    makes in the list ``solvers`` (new ones by default; given ones keep
+    what the script reached if it raises).  Returns its namespace, its
+    solvers, its seconds and the kernel launches it made."""
+    import tempfile
+
+    tree = tempfile.mkdtemp(prefix="thetis_scripts_")
+    solvers = [] if solvers is None else solvers
+    try:
+        copy_scripts(tree)
+        full = os.path.join(tree, path)
+        with (jax_shims(device, dtype), script_process_state(full),
+              mesh_defaults(device, dtype), numpy_reads_tensors(),
+              exporters_without_h5py(),
+              solvers_made((FlowSolver2d, FlowSolver), solvers)):
+            reset_counts()
+            t0 = time.perf_counter()
+            ns = exec_script(full, namespace)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = counts()
+    finally:
+        shutil_rmtree(tree)
+    return SimpleNamespace(namespace=ns, solvers=solvers, seconds=seconds,
+                           launches=launches)
+
+
+#: scripts that the reference itself fails at regression size; the port
+#: fails them the same way (ROADMAP C)
+LOCK_EXCHANGE = "examples/lockExchange/lockExchange.py"
+MEANDER = "examples/sediment_meander_2d/meander_example.py"
+#: phase 30's GPU-against-CPU scripts: one 2D, one 3D (f64), each of
+#: whose runs on the card launches the ring kernels
+EXAMPLES_PARITY = ("examples/waveEq2d/channel2d_waveEq.py",
+                   "examples/baroclinic_channel/baroclinic_channel.py")
+EXAMPLES_PARITY_RTOL = 1e-10
+EXAMPLES_AT_ONCE = 8                    # processes at once: the host's cores
+#: scripts that an earlier phase runs at the same size, each written for
+#: the port (15, 22a, 23a, 24a, 27a, 28c, 29a); the whole script leaves
+#: them out of phase 30 to stay inside its time (``python3 chip_smoke.py
+#: examples`` runs them too)
+EXAMPLES_RUN_EARLIER = (
+    "examples/rhineROFI/rhineROFI.py",
+    "examples/sediment_trench_2d/trench_example.py",
+    "examples/discrete_turbines/tidal_array.py",
+    "examples/nonhydrostatic_cases/solitary_wave_nh/solitary_wave_2d.py",
+    "examples/williamson2/williamson2.py",
+    "examples/channel_inversion/inverse_problem.py",
+    "demos/demo_2d_north_sea.py")
+#: the scripts that take longest on the CPU (over ~40 s), started first
+EXAMPLES_LONG = ("examples/discrete_turbines/tidal_array.py",
+                 "examples/reaction/gray_scott.py",
+                 "examples/tohoku_inversion/inverse_problem.py",
+                 "examples/headland_inversion/inverse_problem.py",
+                 "examples/nonhydrostatic_cases/solitary_wave_nh/"
+                 "solitary_wave_2d.py",
+                 "examples/sediment_trench_2d/trench_example.py",
+                 "examples/channel_inversion/inverse_problem.py",
+                 "examples/north_sea/north_sea.py",
+                 "examples/tidalfarm/tidalfarm.py", "examples/dome/dome.py")
+
+
+def fails_as_the_reference(path, exc, ns):
+    """Whether ``exc``, raised by the script ``path`` that left the
+    globals ``ns``, is the reference's own failure of that script at
+    regression size: the lock exchange's cold bottom front stays at the
+    midline (its last assert); the meander's sediment model takes the
+    horizontal viscosity (5e-2 m^2/s) as the water's, which puts its
+    grains' dimensionless diameter under 1."""
+    if path == LOCK_EXCHANGE:
+        return (type(exc) is AssertionError
+                and ns.get("front_x") == ns.get("lx", 0.0) / 2)
+    if path == MEANDER:
+        return (type(exc) is ValueError
+                and str(exc) == "dstar value less than 1")
+    return False
+
+
+def solver_fields(s):
+    """A solver's fields as host arrays, by name."""
+    return {k: f.data.detach().cpu().numpy() for k, f in s.fields.items()
+            if isinstance(getattr(f, "data", None), torch.Tensor)}
+
+
+def example_case(path, dev=torch.device("cuda")):
+    """Phase 30: one script through the port on the card, f64, in a
+    process of its own (``python3 chip_smoke.py example <path>``): its
+    own checks (or the reference's own failure), a 3D script's kernels
+    (the ring kernels, and the tridiagonal kernel exactly where its
+    vertical solves are implicit), and one result line.  The process
+    yields the host's cores to the f64 checks it runs beside
+    (``os.nice``)."""
+    if not torch.cuda.is_available():
+        sys.exit(1)
+    os.nice(10)
+    ns, solvers = {}, []
+    t0 = time.perf_counter()
+    try:
+        run_script(path, dev, namespace=ns, solvers=solvers)
+        outcome = "its checks hold"
+    except Exception as e:  # the reference's own failure, or a fault
+        if not fails_as_the_reference(path, e, ns):
+            raise
+        outcome = f"fails as the reference does: {type(e).__name__} {e}"
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = counts()
+    three_d = [s for s in solvers if isinstance(s, FlowSolver)]
+    # the 3D barotropic CN runs the ring kernels; the vertical solves
+    # are implicit (the tridiagonal kernel) where the script asks
+    implicit = any(s.options.use_implicit_vertical_diffusion
+                   for s in three_d)
+    if three_d and not (n["ring_mv"] > 0 and n["block_diag_mv"] > 0
+                        and (n["tridiag"] > 0) == implicit):
+        raise AssertionError(f"{path}: a 3D script (implicit vertical "
+                             f"solves: {implicit}) launched {n}")
+    steps = sum(s.iteration for s in solvers) if solvers else None
+    log(f"[30 example] {path}: {seconds:.2f} s, steps "
+        f"{'-' if steps is None else steps}, ring_mv {n['ring_mv']}, "
+        f"block_diag_mv {n['block_diag_mv']}, tridiag {n['tridiag']}; "
+        f"{outcome}")
+    log("[30 result] " + json.dumps({"script": path, "seconds": seconds,
+                                     "steps": steps, "launches": n,
+                                     "three_d": bool(three_d)}))
+
+
+def example_parity(path, gpu=torch.device("cuda")):
+    """Phase 30's GPU-against-CPU check (``python3 chip_smoke.py
+    example_parity <path>``): the script through the port on the card and
+    on the CPU, f64; the card's run must launch the ring kernels, and
+    every field of its solver must agree to :data:`EXAMPLES_PARITY_RTOL`
+    of the field's largest value (at :func:`example_case`'s priority)."""
+    if not torch.cuda.is_available():
+        sys.exit(1)
+    os.nice(10)
+    got = []
+    for dev in (gpu, torch.device("cpu")):
+        run = run_script(path, dev)
+        (s,) = run.solvers
+        got.append(solver_fields(s))
+        if dev == gpu:
+            n = run.launches
+    if not (n["ring_mv"] > 0 and n["block_diag_mv"] > 0):
+        raise AssertionError(f"{path}: the card's run launched {n}")
+    worst = 0.0
+    for k, want in got[1].items():
+        scale = max(float(np.abs(want).max()), 1e-300)
+        err = float(np.abs(got[0][k] - want).max()) / scale
+        if not err <= EXAMPLES_PARITY_RTOL:
+            raise AssertionError(f"{path}: {k} GPU against CPU {err}")
+        worst = max(worst, err)
+    log(f"[30 parity] {path}, f64: the card's run launched ring_mv "
+        f"{n['ring_mv']}, block_diag_mv {n['block_diag_mv']}, tridiag "
+        f"{n['tridiag']}; {len(got[1])} fields ({', '.join(sorted(got[1]))})"
+        f", GPU against CPU max|diff|/max {worst:.2e} <= "
+        f"{EXAMPLES_PARITY_RTOL:g}")
+
+
+def interpolate_checks(dev=torch.device("cuda")):
+    """``Function.interpolate`` on the card: a callable that closes over
+    a tensor on the card gets the coordinates there; a numpy callable
+    (the tidal array's sponge) and one whose numpy results meet the
+    card's tensors while numpy reads tensors (row 6 of
+    :data:`REWRITE_TABLE`, as in ``demos/demo_2d_tracer.py``) get them on
+    the host; each against the same callable on the CPU (f64, to 1e-14
+    of scale)."""
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mesh = RectangleMesh(8, 4, 2e3, 1e3, device=d, dtype=torch.float64)
+        space = FunctionSpace(mesh, "DG", 1)
+        h0 = Function(space).assign(2.0).data
+        seen = []
+
+        def on_device(x, y):
+            seen.append(x.device)
+            return h0 * torch.exp(-x / 1e3) + y / 1e3
+
+        def sponge(x, y):
+            return np.where(x <= 1e3, 51.0 - x / 1e2, 1.0 + 0.0 * y)
+
+        def mixed(x, y):
+            return y / 1e3 + np.sin(x / 1e3)
+
+        out[d.type] = [Function(space).interpolate(f).data
+                       for f in (on_device, sponge)]
+        with numpy_reads_tensors():
+            out[d.type].append(Function(space).interpolate(mixed).data)
+        if seen != [h0.device]:
+            raise AssertionError(f"interpolate on {d}: coordinates on "
+                                 f"{seen}")
+    for a, b in zip(out[dev.type], out["cpu"]):
+        if a.device.type != dev.type or max_rel(a.cpu(), b) > 1e-14:
+            raise AssertionError("interpolate: the card against the CPU")
+    log("[30 interpolate] a callable of card tensors ran on the card, a "
+        "numpy callable and one mixing numpy with torch on host "
+        "coordinates; each equals the CPU's")
+
+
+def example_modes(scripts):
+    """Phase 30's processes: each script of ``scripts`` (the longest
+    first) and the GPU-against-CPU scripts; logs the rewrite table."""
+    log("[30 examples] the rewrite table, the only difference from the "
+        "reference's own run (every .py of demos/ and examples/):")
+    for k, (pattern, becomes) in enumerate(REWRITE_TABLE, 1):
+        log(f"[30 examples]   ({k}) {pattern} -> {becomes}")
+    ordered = sorted(scripts, key=lambda p: (p not in EXAMPLES_LONG, p))
+    return ([["example", p] for p in ordered]
+            + [["example_parity", p] for p in EXAMPLES_PARITY])
+
+
+def examples_launches(lines, scripts, smi, seconds):
+    """Phase 30's result from its processes' ``lines``: every script
+    gave one; returns the launches of all the scripts (each process sets
+    its counts to 0 just before its script)."""
+    results = [json.loads(line[len("[30 result] "):]) for line in lines
+               if line.startswith("[30 result] ")]
+    if sorted(r["script"] for r in results) != sorted(scripts):
+        raise RuntimeError("phase 30: a script gave no result")
+    n = {k: sum(r["launches"][k] for r in results) for k in KERNELS}
+    log(f"[30 examples] {len(results)} scripts "
+        f"({sum(r['three_d'] for r in results)} 3D) on {smi}: "
+        f"{sum(r['seconds'] for r in results):.1f} s of script time, "
+        f"{seconds:.1f} s in all; launches {n}")
+    return n
+
+
+def examples_only():
+    """Phase 30 alone (``python3 chip_smoke.py examples``): the device,
+    the build and every script; ends with the same last line."""
+    name = phase_device()
+    smi = card()
+    phase_build()
+    interpolate_checks()
+    scripts = example_scripts()
+    t0 = time.perf_counter()
+    lines = finish_cases(start_cases(example_modes(scripts),
+                                     EXAMPLES_AT_ONCE, one_thread=True),
+                         timeout=1100)
+    examples_launches(lines, scripts, smi, time.perf_counter() - t0)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def io_only():
     """Phase 29 alone (``python3 chip_smoke.py io``): the device, the
     build, 29a-b, the ring kernels at the North Sea's ring table, the
@@ -5103,19 +5806,19 @@ def main():
     new["io"] = phase_io(smi)
     t29 += time.perf_counter() - t0
     log(f"[phase_io] {time.perf_counter() - t0:.1f} s")
+    # the f64 checks, the profile processes, and then the demos and
+    # examples (phase 30), each in a process that sets its counts to 0
+    # just before its script, beside the checks
+    interpolate_checks()
+    scripts = [p for p in example_scripts() if p not in EXAMPLES_RUN_EARLIER]
     t0 = time.perf_counter()
-    phase_cases()
-    log(f"[phase_cases] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_adjoint_checks(smi)
-    log(f"[phase_adjoint_checks] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_io_checks(smi)
-    t29 += time.perf_counter() - t0
-    log(f"[phase_io_checks] {time.perf_counter() - t0:.1f} s")
+    new["examples"], secs = phase_cases(
+        smi, scripts, then=(phase_adjoint_checks, phase_io_checks))
+    t29 += secs["phase_io_checks"]
+    log(f"[phase_cases] with phase 30, {time.perf_counter() - t0:.1f} s")
     log(f"[29 io] phase 29 in all (29a-b, the ring kernels at the North "
-        f"Sea's table, 29c-d; the profile process ran in phase 21's block) "
-        f"{t29:.1f} s")
+        f"Sea's table, 29c-d; the profile process ran in phase 21's "
+        f"block) {t29:.1f} s")
     # the top-level numbers are f32 at the 3D step's shape; "shapes" has
     # every shape and dtype measured in phase 3
     rows = []
@@ -5144,7 +5847,8 @@ def main():
                                     "hdiv": new["hdiv"][k],
                                     "sphere": new["sphere"][k],
                                     "adjoint": new["adjoint"][k],
-                                    "io": new["io"][k]},
+                                    "io": new["io"][k],
+                                    "examples": new["examples"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5198,6 +5902,12 @@ if __name__ == "__main__":
         adjoint_only()
     elif sys.argv[1:] == ["io"]:
         io_only()
+    elif sys.argv[1:2] == ["example"] and len(sys.argv) == 3:
+        example_case(sys.argv[2])
+    elif sys.argv[1:2] == ["example_parity"] and len(sys.argv) == 3:
+        example_parity(sys.argv[2])
+    elif sys.argv[1:] == ["examples"]:
+        examples_only()
     elif sys.argv[1:] == ["profile_io"]:
         profile_io()
     else:

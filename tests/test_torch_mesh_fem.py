@@ -184,6 +184,27 @@ def test_assembler_ops(kind, op):
     close(got, want)
 
 
+#: evaluations a user's script hands host data (``asm.norm_l2(
+#: np.asarray(...))``): the reference takes numpy arrays, so does the port
+HOST_OPS = {"cell_values_s": ("cell_values", "dofs_s"),
+            "cell_values_v": ("cell_values", "dofs_v"),
+            "cell_grads": ("cell_grads", "dofs_v"),
+            "integrate_s": ("integrate", "dofs_s"),
+            "norm_l2_s": ("norm_l2", "dofs_s"),
+            "norm_l2_v": ("norm_l2", "dofs_v")}
+
+
+@pytest.mark.parametrize("kind", sorted(MESHES))
+@pytest.mark.parametrize("op", sorted(HOST_OPS))
+def test_assembler_takes_numpy_input(kind, op):
+    _, _, ja, ta = pair(kind)
+    meth, arg = HOST_OPS[op]
+    dofs = _inputs(kind, np.random.default_rng(5))[arg]
+    got = getattr(ta, meth)(dofs)
+    assert got.dtype == F64 and got.device.type == "cpu"
+    close(got, getattr(ja, meth)(dofs))
+
+
 @pytest.mark.parametrize("kind", sorted(MESHES))
 @pytest.mark.parametrize("coeff", ["scalar", "cg1", "dg", "p0", "cellq"])
 def test_coefficient_cell_q(kind, coeff):
@@ -213,3 +234,44 @@ def test_interpolate_at_dof_coords(kind):
     close(ta.space.dof_coords(), ja.space.dof_coords())
     close(TFunction(ta.space).interpolate(ft).data,
           JFunction(ja.space).interpolate(fj).data)
+
+
+@pytest.mark.parametrize("kind", sorted(MESHES))
+def test_interpolate_a_numpy_callable(kind):
+    """A script's numpy callable (the tidal array's ``np.where`` sponge)
+    is evaluated as numpy reads the reference's arrays, and its array
+    lands on the mesh's device and dtype (on the card it gets host
+    coordinates: ``chip_smoke.interpolate_checks``)."""
+    from thetis_tpu.fem.functionspace import Function as JFunction
+
+    _, _, ja, ta = pair(kind)
+
+    def sponge(x, y):
+        return np.where(x <= 2e3, 51.0 - x / 1e3, 1.0 + 0.0 * y)
+
+    got = TFunction(ta.space).interpolate(sponge).data
+    assert got.dtype == F64 and got.device == ta.mesh.device
+    close(got, JFunction(ja.space).interpolate(sponge).data)
+
+
+@pytest.mark.parametrize("kind", sorted(MESHES))
+def test_interpolate_a_callable_of_device_tensors(kind):
+    """A callable that closes over a tensor of the mesh's device gets
+    the coordinates on that device, as the reference's callables get its
+    device arrays."""
+    from thetis_tpu.fem.functionspace import Function as JFunction
+
+    _, _, ja, ta = pair(kind)
+    h0 = TFunction(ta.space).assign(2.0).data
+    seen = []
+
+    def ft(x, y):
+        seen.append(x.device)
+        return h0 * torch.exp(-x / 1e4) + 0.0 * y
+
+    def fj(x, y):
+        return 2.0 * jnp.exp(-x / 1e4) + 0.0 * y
+
+    got = TFunction(ta.space).interpolate(ft).data
+    assert seen == [ta.mesh.device]
+    close(got, JFunction(ja.space).interpolate(fj).data)

@@ -271,26 +271,41 @@ def test_demo_2d_channel_through_the_facade():
     assert abs(s.compute_volume_2d() - v0) <= 1e-10 * abs(v0)
 
 
-FACADE_MESHES = ("RectangleMesh", "PeriodicRectangleMesh")
+FACADE_MESHES = ("RectangleMesh", "PeriodicRectangleMesh",
+                 # the module-level constructors, as a script imports them
+                 # from the modules (``thetis_tpu.mesh.generation`` /
+                 # ``.mesh2d``): the same rule
+                 "generation.RectangleMesh",
+                 "generation.PeriodicRectangleMesh", "mesh2d.Mesh2d")
+
+
+def _mesh_call(gen, **kw):
+    """A 4 x 3 rectangle (24 cells) through the constructor ``gen``: a
+    facade name, or ``module.name`` under ``thetis_tpu_torch.mesh``."""
+    import thetis_tpu_torch as facade
+    from thetis_tpu_torch.mesh import generation, mesh2d
+
+    if gen == "mesh2d.Mesh2d":
+        rect = generation.RectangleMesh(4, 3, 1e3, 1e3, device="cpu")
+        return mesh2d.Mesh2d(rect.coords_np, rect.cells_np, **kw)
+    mod, _, name = gen.rpartition(".")
+    ctor = getattr({"": facade, "generation": generation}[mod], name)
+    return ctor(4, 3, 1e3, 1e3, **kw)
 
 
 @pytest.mark.parametrize("gen", FACADE_MESHES)
 def test_facade_mesh_without_a_card_raises(gen, monkeypatch):
-    """Without ``device=`` the facade's meshes go to the card; with no
-    card they raise and say how to ask for the CPU."""
-    import thetis_tpu_torch as facade
-
+    """Without ``device=`` the meshes go to the card; with no card they
+    raise and say how to ask for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        getattr(facade, gen)(4, 3, 1e3, 1e3)
+        _mesh_call(gen)
 
 
 @pytest.mark.parametrize("gen", FACADE_MESHES)
 def test_facade_mesh_on_the_cpu_when_asked(gen, monkeypatch):
-    import thetis_tpu_torch as facade
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    mesh = getattr(facade, gen)(4, 3, 1e3, 1e3, device="cpu")
+    mesh = _mesh_call(gen, device="cpu")
     assert mesh.device.type == "cpu" and mesh.dtype == torch.float64
     assert mesh.nc == 24
     assert mesh.facet_is_interior.device.type == "cpu"

@@ -2,7 +2,9 @@
 its submodules pulls in neither JAX, nor the JAX package, nor Triton
 (whose kernels are built only inside the launching function), and no
 source file of the port, of ``chip_smoke.py`` or of ``chip_ab.py`` has an
-import statement naming JAX or the JAX package."""
+import statement naming JAX or the JAX package; neither does a demo or
+example script as ``chip_smoke.py``'s runner rewrites it, and importing
+``chip_smoke`` pulls in none of them."""
 import os
 import re
 import subprocess
@@ -89,3 +91,65 @@ def test_no_import_statement_names_jax():
             for m in _IMPORT.finditer(f.read()):
                 hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0)}")
     assert not hits, hits
+
+
+def _imported_modules(tree):
+    """The modules a syntax tree imports: import statements and
+    ``__import__("...")`` calls."""
+    import ast
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_translated_scripts_import_no_jax():
+    """Every ``.py`` of demos/ and examples/ (the helpers too), rewritten
+    by ``chip_smoke.REWRITE_TABLE`` as the script runner runs it, imports
+    neither JAX nor the JAX package, where every untranslated source
+    imports one of them."""
+    import ast
+    import glob
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    files = sorted(glob.glob(os.path.join(ROOT, "demos", "*.py"))
+                   + glob.glob(os.path.join(ROOT, "examples", "**", "*.py"),
+                               recursive=True))
+    assert len(files) == 46
+    before, hits = 0, []
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        for tree, out in ((ast.parse(src), None),
+                          (ast.parse(chip_smoke.translate(src)), hits)):
+            bad = [m for m in _imported_modules(tree)
+                   if m.split(".")[0] in ("jax", "jaxlib", "thetis_tpu")]
+            if out is None:
+                before += bool(bad)
+            else:
+                out += [f"{os.path.relpath(path, ROOT)}: {m}" for m in bad]
+    assert before == len(files)
+    assert not hits, hits
+
+
+def test_chip_smoke_pulls_in_no_jax():
+    """Importing ``chip_smoke`` (the script runner among it) imports
+    neither JAX, nor the JAX package, nor Triton."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    probe = ("import sys, chip_smoke; print(','.join(sorted(m for m in "
+             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+             "'thetis_tpu', 'triton'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout

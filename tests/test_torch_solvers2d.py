@@ -280,6 +280,28 @@ def test_coarse_correction(kind):
 
 
 @pytest.mark.parametrize("kind", ["rect", "periodic"])
+def test_coarse_restriction_is_a_sorted_segment_sum(kind):
+    """The coarse corrections restrict by a segment sum over the cells
+    sorted by aggregate (one fixed summation order on every device; a
+    CUDA ``index_add_`` sums in the order of its atomics): every cell
+    once, in its own aggregate's segment, the sums equal to
+    ``np.add.at``'s."""
+    c = make(kind)
+    agg, n_agg = tas.aggregate_cells(c.tm, 12)
+    order, lengths = tas.aggregate_segments(agg, n_agg, c.tm.device)
+    nc = c.tm.nc
+    assert np.array_equal(np.sort(order.numpy()), np.arange(nc))
+    assert int(lengths.sum()) == nc and len(lengths) == n_agg
+    ends = np.cumsum(lengths.numpy())
+    assert all((agg[order.numpy()[e - n:e]] == a).all()
+               for a, (e, n) in enumerate(zip(ends, lengths.numpy())))
+    r = c.rng.standard_normal((nc, 9))
+    want = np.zeros((n_agg, 9))
+    np.add.at(want, agg, r)
+    close(tas.restrict(torch.tensor(r), (order, lengths)), want, 1e-14)
+
+
+@pytest.mark.parametrize("kind", ["rect", "periodic"])
 def test_schur_fieldsplit_pc(kind):
     c = make(kind)
     jb, tb = rest_blocks(c, 25.0 * c.hmin / np.sqrt(9.81 * 25.0))

@@ -33,12 +33,12 @@ the callbacks (``callback``, ``DiagnosticCallback``, ``DetectorsCallback``,
 (``exp``, ``sqrt``, ``sin``, ``cos``, ``tan``, ``sinh``, ``cosh``,
 ``tanh``, ``ln``, ``pi``, ``conditional``, ``min_value``, ``max_value``,
 ``dot``, ``as_vector``; ``abs`` as an attribute) as torch functions that
-also take numpy arrays and numbers (in float64).  The facade's mesh constructors
-put the mesh on the CUDA device, in float64, unless ``device=``/``dtype=``
-say otherwise; without a card they raise unless the caller asks for the
-CPU with ``device="cpu"``; so do the sphere meshes and the gmsh reader,
-which a script imports from ``thetis_tpu_torch.mesh.sphere`` and
-``thetis_tpu_torch.mesh.gmsh`` as it does from the reference.  Exporters,
+also take numpy arrays and numbers (in float64).  The mesh constructors
+(those of ``thetis_tpu_torch.mesh.generation`` and ``.mesh2d``, which the
+facade re-exports, the sphere meshes and the gmsh reader) put the mesh on
+the CUDA device, in float64, unless ``device=``/``dtype=`` say otherwise;
+without a card they raise unless the caller asks for the CPU with
+``device="cpu"``.  Exporters,
 checkpoints (``load_state``) and the file-driven forcing
 (``thetis_tpu_torch.model.forcing``, ``.forcing_adapters``,
 ``thetis_tpu_torch.utils.tides``, ``.netcdf_io``) are imported as in the
@@ -59,9 +59,9 @@ from .equations.limiter import VertexBasedP1DGLimiter
 from .fem.assembly import DGAssembler
 from .fem.functionspace import (Function, FunctionSpace, SpatialCoordinate,
                                 VectorFunctionSpace, get_functionspace)
-from .mesh import generation as _generation
-from .mesh import mesh2d as _mesh2d
-from .mesh.mesh2d import default_device
+from .mesh.generation import (PeriodicRectangleMesh, RectangleMesh,
+                              SquareMesh, UnitSquareMesh)
+from .mesh.mesh2d import Mesh2d
 from .model import callback
 from .model import flowsolver2d as solver2d
 from .model.callback import (DetectorsCallback, DiagnosticCallback,
@@ -142,50 +142,3 @@ def as_vector(components):
     comps = [_t(c) for c in components]
     shape = torch.broadcast_shapes(*[c.shape for c in comps])
     return torch.stack([c.broadcast_to(shape) for c in comps], dim=-1)
-
-
-def Mesh2d(coords, cells, boundary_markers=None, name="mesh2d",
-           periodic_x_len=None, periodic_y_len=None, *, device=None,
-           dtype=torch.float64):
-    """:class:`thetis_tpu_torch.mesh.mesh2d.Mesh2d` with the facade's
-    default device and dtype."""
-    return _mesh2d.Mesh2d(coords, cells, boundary_markers, name,
-                          periodic_x_len, periodic_y_len,
-                          device=default_device(device), dtype=dtype)
-
-
-def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
-                  name="rectangle", *, device=None, dtype=torch.float64):
-    """:func:`thetis_tpu_torch.mesh.generation.RectangleMesh` with the
-    facade's default device and dtype."""
-    return _generation.RectangleMesh(nx, ny, lx, ly, originX, originY, name,
-                                     device=default_device(device),
-                                     dtype=dtype)
-
-
-def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
-                          name="periodic_rectangle", *, device=None,
-                          dtype=torch.float64):
-    """:func:`thetis_tpu_torch.mesh.generation.PeriodicRectangleMesh` with
-    the facade's default device and dtype."""
-    return _generation.PeriodicRectangleMesh(
-        nx, ny, lx, ly, direction, name, device=default_device(device),
-        dtype=dtype)
-
-
-def SquareMesh(nx, ny, l, name="square", *, device=None,
-               dtype=torch.float64):
-    """:func:`thetis_tpu_torch.mesh.generation.SquareMesh` with the
-    facade's default device and dtype."""
-    return _generation.SquareMesh(nx, ny, l, name,
-                                  device=default_device(device),
-                                  dtype=dtype)
-
-
-def UnitSquareMesh(nx, ny, name="unitsquare", *, device=None,
-                   dtype=torch.float64):
-    """:func:`thetis_tpu_torch.mesh.generation.UnitSquareMesh` with the
-    facade's default device and dtype."""
-    return _generation.UnitSquareMesh(nx, ny, name,
-                                      device=default_device(device),
-                                      dtype=dtype)

@@ -114,14 +114,19 @@ class DGAssembler:
         return torch.as_tensor(val, dtype=self.mesh.dtype,
                                device=self.mesh.device)
 
+    def _dofs(self, u):
+        """Dof data as given (a tensor), or host data, as the reference
+        takes it, as a tensor on the mesh's device and dtype."""
+        return u if isinstance(u, torch.Tensor) else self.as_tensor(u)
+
     # ======================= evaluation ================================
     def cell_values(self, u):
         """(nc, nd[, k]) dofs -> (nc, nq[, k]) quad-point values."""
-        return torch.einsum("qd,cd...->cq...", self.space.phi, u)
+        return torch.einsum("qd,cd...->cq...", self.space.phi, self._dofs(u))
 
     def cell_grads(self, u):
         """(nc, nd[, k]) -> (nc, nq[, k], 2) physical gradients."""
-        g = torch.einsum("qdj,cd...->cq...j", self.space.dphi, u)
+        g = torch.einsum("qdj,cd...->cq...j", self.space.dphi, self._dofs(u))
         return torch.einsum("cq...j,cji->cq...i", g, self.mesh.Jinv)
 
     def cg1_values(self, u):

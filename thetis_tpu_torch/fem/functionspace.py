@@ -169,11 +169,23 @@ class Function:
         return self
 
     def interpolate(self, expr):
-        """Interpolate ``expr``: a callable ``f(x, y) -> tensor`` evaluated
-        at the dof coordinates, a dof-shaped tensor or a scalar."""
+        """Interpolate ``expr``: a callable ``f(x, y) -> tensor or array``
+        evaluated at the dof coordinates, a dof-shaped tensor or a scalar.
+        The callable gets the coordinates on the mesh's device; one that
+        cannot run there gets them again on the host: numpy reads the
+        reference's arrays but no CUDA tensor (a script's
+        ``np.where(x <= 50.0, ...)`` raises a TypeError), and numpy's
+        host results do not mix with the device's tensors (a
+        RuntimeError). The value then goes to the mesh's device."""
         if callable(expr):
             xy = self.function_space.dof_coords()
-            expr = expr(xy[..., 0], xy[..., 1])
+            try:
+                expr = expr(xy[..., 0], xy[..., 1])
+            except (TypeError, RuntimeError):
+                if xy.device.type == "cpu":
+                    raise
+                xy = xy.cpu()
+                expr = expr(xy[..., 0], xy[..., 1])
         return self.assign(expr)
 
     def __repr__(self):

@@ -1,12 +1,16 @@
 """Built-in mesh generators (port of ``thetis_tpu/mesh/generation.py``:
 ``RectangleMesh``, ``SquareMesh``, ``UnitSquareMesh`` and
-``PeriodicRectangleMesh``), mirroring Firedrake's utility meshes.  The host tables are built by the same numpy code as the
-reference, so both packages produce identical connectivity.
+``PeriodicRectangleMesh``), mirroring Firedrake's utility meshes.  The
+host tables are built by the same numpy code as the reference, so both
+packages produce identical connectivity.  Each constructor takes the
+reference's arguments and, after them, ``device`` and ``dtype``: the card
+and float64 unless asked otherwise (:func:`.mesh2d.default_device`).
 
 Boundary marker convention matches Firedrake's RectangleMesh:
 1: x = 0 (left), 2: x = Lx (right), 3: y = 0 (bottom), 4: y = Ly (top).
 """
 import numpy as np
+import torch
 
 from .mesh2d import Mesh2d
 
@@ -15,7 +19,7 @@ __all__ = ["RectangleMesh", "SquareMesh", "UnitSquareMesh",
 
 
 def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
-                  name="rectangle", *, device, dtype):
+                  name="rectangle", *, device=None, dtype=torch.float64):
     """Structured triangulated rectangle: nx*ny quads, each split into 2
     triangles (diagonal from lower-left to upper-right, like Firedrake's
     default 'crossed=False' left diagonal)."""
@@ -54,18 +58,21 @@ def RectangleMesh(nx, ny, lx, ly, originX=0.0, originY=0.0,
                   device=device, dtype=dtype)
 
 
-def SquareMesh(nx, ny, l, name="square", *, device, dtype):
+def SquareMesh(nx, ny, l, name="square", *, device=None,
+               dtype=torch.float64):
     return RectangleMesh(nx, ny, l, l, name=name, device=device,
                          dtype=dtype)
 
 
-def UnitSquareMesh(nx, ny, name="unitsquare", *, device, dtype):
+def UnitSquareMesh(nx, ny, name="unitsquare", *, device=None,
+                   dtype=torch.float64):
     return RectangleMesh(nx, ny, 1.0, 1.0, name=name, device=device,
                          dtype=dtype)
 
 
 def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
-                          name="periodic_rectangle", *, device, dtype):
+                          name="periodic_rectangle", *, device=None,
+                          dtype=torch.float64):
     """Rectangle periodic in x (``direction='x'``) or in both directions:
     the last column of vertices wraps to the first, so seam facets are
     ordinary interior facets; geometry uses seam-aware coordinate

@@ -24,15 +24,15 @@ import torch
 
 __all__ = ["Mesh2d", "default_device"]
 
+
 def default_device(device):
-    """The device of a mesh built through the facade (the user-facing
-    constructors): ``device`` when given, else the card; without a card
-    this raises rather than fall back to the CPU quietly."""
+    """The device of a mesh: ``device`` when given, else the card; without
+    a card this raises rather than fall back to the CPU quietly."""
     if device is not None:
         return device
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: the facade's meshes go to the card unless "
+            "no CUDA device: meshes go to the card unless "
             'asked otherwise; pass device="cpu" to run on the CPU')
     return "cuda"
 
@@ -47,7 +47,8 @@ _DEVICE_TABLES = (
 
 class Mesh2d:
     def __init__(self, coords, cells, boundary_markers=None, name="mesh2d",
-                 periodic_x_len=None, periodic_y_len=None, *, device, dtype):
+                 periodic_x_len=None, periodic_y_len=None, *, device=None,
+                 dtype=torch.float64):
         """
         :arg coords: (nv, 2) float vertex coordinates
         :arg cells: (nc, 3) int vertex indices
@@ -59,6 +60,7 @@ class Mesh2d:
             period: all coordinate *differences* used in the geometry are
             unwrapped modulo the period.
         :arg device: torch device of every tensor built on this mesh
+            (default: the card, :func:`default_device`)
         :arg dtype: floating dtype of every tensor built on this mesh
         """
         coords = np.asarray(coords, dtype=np.float64)
@@ -67,7 +69,7 @@ class Mesh2d:
             raise ValueError(f"coords must be (nv, 2), got {coords.shape}")
         if cells.ndim != 2 or cells.shape[1] != 3:
             raise ValueError(f"cells must be (nc, 3), got {cells.shape}")
-        self.device = torch.device(device)
+        self.device = torch.device(default_device(device))
         self.dtype = dtype
         self.name = name
         self.coords_np = coords

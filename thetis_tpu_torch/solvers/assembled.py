@@ -225,14 +225,36 @@ def aggregate_cells(mesh, target_size=96):
     return agg.astype(np.int32), len(uniq)
 
 
+def aggregate_segments(agg, n_agg, device):
+    """(order, lengths) on ``device``: the cells sorted by aggregate and
+    each aggregate's cell count, the segments of :func:`restrict`."""
+    agg = np.asarray(agg, dtype=np.int64)
+    order = np.argsort(agg, kind="stable")
+    lengths = np.bincount(agg, minlength=n_agg)
+    return (torch.as_tensor(order, device=device),
+            torch.as_tensor(lengths, device=device))
+
+
+def restrict(r, segments):
+    """(nc, k) -> (n_agg, k): the sum of ``r``'s rows over each aggregate
+    of :func:`aggregate_segments`, a sorted segment sum that adds in one
+    fixed order on every device (a CUDA ``index_add_`` adds in the order
+    its atomics land, so two evaluations of one functional on the card
+    differed in the last bit; the inversion examples'
+    ``consistency_test`` asks for equal ones)."""
+    order, lengths = segments
+    return torch.segment_reduce(r[order], "sum", lengths=lengths,
+                                unsafe=True)
+
+
 class CoarseCorrection:
     """Galerkin coarse correction for an assembled 1-ring operator.
 
     The coarse space is piecewise-constant per aggregate: P injects
     coarse dofs to cells, ``A_c = P^T A P`` is formed from the 1-ring
     blocks on the host (float64) ONCE at setup and inverted densely; each
-    application is a segment-sum restriction (``index_add_``), one dense
-    matvec and a gather prolongation.
+    application is a segment-sum restriction (:func:`restrict`), one
+    dense matvec and a gather prolongation.
 
     :arg blocks: cell-major blocks (nc, 4, d, d) on the solve's device
     :arg ring: (nc, 4) closed 1-ring table (host numpy)
@@ -270,12 +292,13 @@ class CoarseCorrection:
         self.nd_c = A_c.shape[1]
         A_c = A_c.reshape(n_agg * self.nd_c, n_agg * self.nd_c)
         self.agg = torch.as_tensor(agg.astype(np.int64), device=blocks.device)
+        self.segments = aggregate_segments(agg, n_agg, blocks.device)
         self.Ac_inv = torch.as_tensor(np.linalg.inv(A_c), dtype=blocks.dtype,
                                       device=blocks.device)
 
     def __call__(self, r):
         """r (nc, d) -> coarse-corrected increment (nc, d)."""
-        r_c = r.new_zeros((self.n_agg, self.d)).index_add_(0, self.agg, r)
+        r_c = restrict(r, self.segments)
         if self.F is not None:
             r_c = r_c @ self.F
         z_c = (self.Ac_inv @ r_c.reshape(-1)).reshape(self.n_agg, self.nd_c)
@@ -299,7 +322,7 @@ class _TransposedCoarse(CoarseCorrection):
 
     def __init__(self, coarse):
         self.n_agg, self.d, self.nd_c = coarse.n_agg, coarse.d, coarse.nd_c
-        self.agg, self.F = coarse.agg, coarse.F
+        self.agg, self.segments, self.F = coarse.agg, coarse.segments, coarse.F
         self.Ac_inv = coarse.Ac_inv.T.contiguous()
         self._transposed = coarse
 

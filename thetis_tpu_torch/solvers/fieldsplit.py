@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..kernels.ringmv import ring_reverse, ring_transpose_T
-from .assembled import aggregate_cells, ring_apply, ring_tables
+from .assembled import (aggregate_cells, aggregate_segments, restrict,
+                        ring_apply, ring_tables)
 
 __all__ = ["SchurFieldsplitPC"]
 
@@ -136,6 +137,7 @@ class SchurFieldsplitPC:
             return torch.as_tensor(a, dtype=dt, device=dev)
 
         self.agg = t(agg.astype(np.int64), torch.int64)
+        self.segments = aggregate_segments(agg, n_agg, dev)
         self.Ac_inv = t(np.linalg.inv(A_c))
         self.ring = t(ring.astype(np.int64), torch.int64)
         self.Auu, self.Aue = t(Auu), t(Aue)
@@ -159,7 +161,7 @@ class SchurFieldsplitPC:
         return z
 
     def _coarse(self, r):
-        r_c = r.new_zeros((self.n_agg, self.ne)).index_add_(0, self.agg, r)
+        r_c = restrict(r, self.segments)
         z_c = (self.Ac_inv @ r_c.reshape(-1)).reshape(self.n_agg, self.ne)
         return z_c[self.agg]
 
