@@ -287,8 +287,31 @@ Phases, each printing its lines:
     The kernels line's ``launches_by_path`` gains ``examples``, the sum
     over the scripts.
 
+31. the partitioned path, ``thetis_tpu_torch.parallel`` (``python3
+    chip_smoke.py parallel`` runs it alone; in the whole script it runs
+    after phase 6), PAR_PARTS = 4 partitions on the one card: (a) the
+    bench's 3D channel on the non-periodic 48x48 rectangle (the stripe
+    partition refuses periodic-x), 12 layers, f64: one partitioned step
+    (``ShardedFlowSolver3d``; its barotropic solve ``ShardedAssembledCN``)
+    against the serial port's step on the card to 1e-11 relative, the
+    barotropic Krylov at 1e-13 (the reference's test), and a second step
+    from the same state the same bits; then f32, the serial step and the
+    partitioned step side by side, 1 warm-up and 3 timed steps each:
+    ms/step, device ms/step and device kernels of one step, launches a
+    step (partitions on one card are overhead, not scaling); (b) the 2D
+    CN bench (nc 102,400) partitioned, without and with the per-field
+    coarse correction, f64, one step against the serial assembled CN to
+    1e-10 relative, FGMRES cycles; (c) ring_mv and block_diag_mv at one
+    partition's extended ring table of (a) and of (b), the tridiagonal
+    solve at one partition's columns of (a), each against its plain
+    version with its bound and library time (``shapes`` rows).  Every
+    kernel must launch on the partitioned runs (``launches_by_path``
+    gains ``parallel``, their sum); the phase prints its seconds in a
+    ``[phase_parallel]`` line.
+
 Then one JSON line describing each kernel (top-level numbers f32 at the
-3D step's shape, ``shapes`` every shape and dtype of phase 3), the card's
+3D step's shape, ``shapes`` every shape and dtype of phases 3 and 31c),
+the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result;
@@ -551,18 +574,16 @@ def workload(device, dtype, nx=NX, ny=NY):
     return mesh, eq, st, sol, fields
 
 
-def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3, options=None,
-               stretch=None):
-    """The bench's 3D baroclinic channel (bench.py:112-177) on the port,
-    entered as the bench enters the reference; ``options`` are set over
-    the bench's, ``stretch`` refines the layers toward the surface (the
-    temperature is then set on the refined grid's own nodes)."""
+def bench3d_solver(mesh2d, cor, nz=NZ3, nx=NX3, options=None,
+                   stretch=None):
+    """A ``FlowSolver`` on ``mesh2d`` with the bench's 3D options
+    (bench.py:112-177), the CG1 Coriolis ``cor`` on its vertices and the
+    horizontal viscosity of an ``nx``-wide mesh; ``options`` are set over
+    the bench's, ``stretch`` refines the layers toward the surface.
+    Initialized, no initial conditions."""
+    device, dtype = mesh2d.device, mesh2d.dtype
     physical_constants["rho0"] = 1020.0
-    mesh2d = PeriodicRectangleMesh(nx, ny, L3, L3, direction="x",
-                                   device=device, dtype=dtype)
     nu_scale = 0.5 * (L3 / nx) / 200.0
-    f0, beta = beta_plane_coriolis_params(37.5)
-    cor = f0 + beta * (mesh2d.coords_np[:, 1] - L3 / 2)  # CG1 field
     s = FlowSolver(mesh2d, torch.tensor(DEPTH3, dtype=dtype, device=device),
                    nz, extrude_options=(None if stretch is None else
                                         dict(z_stretch_fact=stretch)))
@@ -587,6 +608,27 @@ def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3, options=None,
     ))
     s.options.update(options or {})
     s.initialize()
+    return s
+
+
+def bench3d_coriolis(mesh2d):
+    """The bench's beta-plane Coriolis on the vertices (a CG1 field)."""
+    f0, beta = beta_plane_coriolis_params(37.5)
+    return f0 + beta * (mesh2d.coords_np[:, 1] - L3 / 2)
+
+
+def workload3d(device, dtype, nx=NX3, ny=NY3, nz=NZ3, options=None,
+               stretch=None, mesh2d=None):
+    """The bench's 3D baroclinic channel (bench.py:112-177) on the port,
+    entered as the bench enters the reference; ``options`` are set over
+    the bench's, ``stretch`` refines the layers toward the surface (the
+    temperature is then set on the refined grid's own nodes).  The mesh
+    is the bench's periodic one unless ``mesh2d`` is given."""
+    if mesh2d is None:
+        mesh2d = PeriodicRectangleMesh(nx, ny, L3, L3, direction="x",
+                                       device=device, dtype=dtype)
+    s = bench3d_solver(mesh2d, bench3d_coriolis(mesh2d), nz, nx, options,
+                       stretch)
     x = mesh2d.coords_np[mesh2d.cells_np]  # (nc, 3, 2) P1DG nodes
     y_pert = 0.1 * L3 * np.sin(2 * np.pi * x[..., 0] / L3)
     t2d = 25.0 - 5e-6 * (x[..., 1] + y_pert - L3 / 2)
@@ -1115,9 +1157,14 @@ def phase_kernel_ragged():
             f"with no valid slot): max|err|/max|ref| {'; '.join(errs)}: ok")
 
 
-def phase_kernel_ring(nx, ny, periodic, mesh=None):
+def phase_kernel_ring(nx, ny, periodic, mesh=None, cold=None,
+                      bjac_rows=None):
     """Both ring kernels at the ring of a ``nx`` x ``ny`` rectangle (the 3D
-    bench's periodic one, or the 2D bench's), or of ``mesh``."""
+    bench's periodic one, or the 2D bench's), or of ``mesh``; ``cold``
+    (default: the f32 blocks outgrow the L2) times them with the L2
+    flushed before each call; ``bjac_rows`` (default all) is the number
+    of leading rows the block-Jacobi apply takes (a partition's owned
+    rows)."""
     dev = torch.device("cuda")
     if mesh is None and periodic:
         mesh = PeriodicRectangleMesh(nx, ny, L3, L3, direction="x",
@@ -1135,7 +1182,8 @@ def phase_kernel_ring(nx, ny, periodic, mesh=None):
                       dtype=torch.float64)
     # where the f32 blocks outgrow the 50 MB L2, the solvers' other work
     # evicts D too (a ring matvec runs between two block-Jacobi applies)
-    cold = 4 * 81 * nc * 4 > 50e6
+    if cold is None:
+        cold = 4 * 81 * nc * 4 > 50e6
     out = {}
     for dtype in (torch.float64, torch.float32):
         blocks, x, diag = b64.to(dtype), x64.to(dtype), d64.to(dtype)
@@ -1149,15 +1197,17 @@ def phase_kernel_ring(nx, ny, periodic, mesh=None):
             ("cuSPARSE bsrmv (torch.mv of a BSR tensor)",
              lambda: torch.mv(A, xc), lambda y: y.reshape(nc, 9).T),
             ring_mv_bytes(nc, n_valid, es), 2 * 81 * n_valid, cold)
+        nb = nc if bjac_rows is None else bjac_rows
+        diag, r = diag[..., :nb].contiguous(), x[:, :nb].contiguous()
         dc = diag.permute(2, 0, 1).contiguous()
-        rc = x.T.contiguous()[:, :, None]
+        rc = r.T.contiguous()[:, :, None]
         out[("block_diag_mv", dtype)] = measure(
-            f"block_diag_mv nc={nc}", dtype,
-            lambda: ringmv.block_diag_mv(diag, x),
-            lambda: ringmv.block_diag_mv_reference(diag, x),
+            f"block_diag_mv nc={nb}", dtype,
+            lambda: ringmv.block_diag_mv(diag, r),
+            lambda: ringmv.block_diag_mv_reference(diag, r),
             ("torch.bmm (nc, 9, 9) x (nc, 9, 1)", lambda: torch.bmm(dc, rc),
              lambda z: z[:, :, 0].T),
-            (81 + 18) * nc * es, 2 * 81 * nc, cold)
+            (81 + 18) * nb * es, 2 * 81 * nb, cold)
     return out
 
 
@@ -5647,6 +5697,263 @@ def examples_launches(lines, scripts, smi, seconds):
     return n
 
 
+# -- phase 31: the partitioned path (thetis_tpu_torch.parallel) ----------
+PAR_PARTS = 4                  # partitions, all on the one card
+PAR_STEPS = 3                  # f32 timed steps (after one warm-up)
+#: the reference's parity parameters: the 3D step's barotropic Krylov
+#: (tests/test_parallel.py:335-336) and the assembled CN's (:242)
+PAR_3D_PARAMS = dict(ksp_rtol=1e-13, ksp_max_it=192, gmres_restart=48)
+PAR_CN_PARAMS = dict(ksp_rtol=1e-13, ksp_max_it=400, gmres_restart=40)
+PAR_3D_RTOL = 1e-11            # test_parallel.py:373
+PAR_CN_RTOL = 1e-10            # test_parallel.py:252, :296
+#: packed [elev (3), u/v interleaved (6)] -> coarse fields eta, u, v (the
+#: per-field coarse space FlowSolver2d builds)
+PAR_COARSE_FIELDS = [0, 0, 0, 1, 2, 1, 2, 1, 2]
+
+
+def to_striped(part, tree):
+    """Global-order cell tensors -> the partition's striped-global order,
+    on their device."""
+    perm = torch.as_tensor(part.perm.astype(np.int64))
+    return {k: v[perm.to(v.device)] for k, v in tree.items()}
+
+
+def from_striped(part, tree):
+    inv = torch.as_tensor(part.inv_perm.astype(np.int64))
+    return {k: v[inv.to(v.device)] for k, v in tree.items()}
+
+
+def max_rel_tree(ref, got):
+    """Largest over the keys of max|got - ref| / max|ref|."""
+    return max(float((got[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+
+
+def parallel3d(dev, dtype, params=None):
+    """The bench's 3D channel on the non-periodic 48x48 rectangle (the
+    stripe partition refuses a periodic-x mesh), serial and split into
+    PAR_PARTS partitions on ``dev``: ``(serial, sharded, partition,
+    state, swe_fields)``, the state in global order."""
+    from thetis_tpu_torch.parallel.sharded3d import ShardedFlowSolver3d
+    from thetis_tpu_torch.parallel.submesh import HaloPartition
+
+    opts = (None if params is None else
+            dict(barotropic_solver_parameters=NewtonParameters(**params)))
+    mesh = RectangleMesh(NX3, NY3, L3, L3, device=dev, dtype=dtype)
+    ser, state, swe, _ = workload3d(dev, dtype, options=opts, mesh2d=mesh)
+    cor = bench3d_coriolis(mesh)
+    part = HaloPartition(mesh, PAR_PARTS, devices=[dev] * PAR_PARTS)
+    sh3 = ShardedFlowSolver3d(part, lambda sm, d: bench3d_solver(
+        sm, part.local_vertex_values(cor)[d], options=opts))
+    return ser, sh3, part, state, swe
+
+
+def parallel_cn(dev, dtype, coarse):
+    """The bench's 2D CN (nc 102,400) serial and over PAR_PARTS
+    partitions, both solving to PAR_CN_PARAMS; with ``coarse`` the
+    per-field coarse correction built from the rest-state blocks.
+    ``(mesh, serial stepper, sharded stepper, partition, sol, fields)``."""
+    from thetis_tpu_torch.parallel.assembled_sharded import (
+        ShardedAssembledCN)
+    from thetis_tpu_torch.parallel.sharded import ShardedEquation
+    from thetis_tpu_torch.parallel.submesh import HaloPartition
+    from thetis_tpu_torch.solvers.assembled import CoarseCorrection
+    from thetis_tpu_torch.timeintegration.steppers import CrankNicolson
+
+    mesh, eq, st, sol, fields = workload(dev, dtype)
+    cc = None
+    if coarse:
+        zero = {k: torch.zeros_like(v) for k, v in sol.items()}
+        blocks_T = eq.assemble_operator_blocks(zero, fields, {},
+                                               0.5 * st.dt)
+        ring, _, _ = get_coloring(mesh)
+        cc = CoarseCorrection(blocks_T.permute(3, 0, 1, 2), ring, mesh,
+                              fields=PAR_COARSE_FIELDS)
+    ser = CrankNicolson(eq, st.dt, semi_implicit=True, assembled_solve=True,
+                        coarse=cc,
+                        solver_parameters=NewtonParameters(**PAR_CN_PARAMS))
+    part = HaloPartition(mesh, PAR_PARTS, devices=[dev] * PAR_PARTS)
+
+    def build_eq(sm, d):
+        return ShallowWaterEquations(sm, DGAssembler(sm, FunctionSpace(
+            sm, "DG", 1)), eq.options, bathymetry=50.0, bnd_conditions={})
+
+    sh = ShardedAssembledCN(ShardedEquation(part, build_eq), st.dt,
+                            solver_parameters=NewtonParameters(
+                                **PAR_CN_PARAMS), coarse=cc)
+    return mesh, ser, sh, part, sol, fields
+
+
+def phase_parallel_checks():
+    """31a-b in f64: one 3D step and one 2D CN step (without and with the
+    coarse correction) over PAR_PARTS partitions on the card against the
+    serial port's step on the card, at the reference's bounds; the 3D
+    step twice, for the same bits.  Returns the launches of the
+    partitioned runs and the CN's partition."""
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    n_par = {k: 0 for k in KERNELS}
+    cn_part = None
+    ser, sh3, part, state, swe = parallel3d(dev, f64, PAR_3D_PARAMS)
+    ref = ser._step(state, swe, {})
+    state_s = to_striped(part, state)
+    reset_counts()
+    f_par = sh3.gather_swe_fields()
+    out = sh3.step(state_s, f_par, {})
+    torch.cuda.synchronize()
+    n = counts()
+    again = sh3.step(state_s, f_par, {})
+    if any(not torch.equal(out[k], again[k]) for k in out):
+        raise AssertionError("31a: two partitioned f64 steps from one "
+                             "state differ in their bits")
+    err = max_rel_tree(ref, from_striped(part, out))
+    if not err <= PAR_3D_RTOL:
+        raise AssertionError(f"31a f64: partitioned step {err:.3e} from "
+                             f"the serial step > {PAR_3D_RTOL:g}")
+    for k in KERNELS:
+        n_par[k] += n[k]
+    log(f"[31a parallel3d] f64 {NX3}x{NY3}x{NZ3} non-periodic, "
+        f"{PAR_PARTS} partitions of n_loc {part.n_loc} (halo {part.halo}, "
+        f"n_ext {part.n_ext}) on one card: one step {err:.3e} from the "
+        f"serial step (max over fields of max|diff|/max|serial|; bound "
+        f"{PAR_3D_RTOL:g}), a second step from the same state the same "
+        f"bits; launches {n}; FGMRES cycles serial "
+        f"{ser.swe_stepper.stats.get('ksp_cycles')}, partitioned "
+        f"{sh3.swe_stepper.stats.get('ksp_cycles')}")
+    del ser, sh3, ref, out, again
+    for coarse in (False, True):
+        mesh, st, sh, part, sol, fields = parallel_cn(dev, f64, coarse)
+        ref = st.advance(0.0, sol, fields, fields, {})
+        reset_counts()
+        got = sh.advance(0.0, to_striped(part, sol), fields, fields, {})
+        torch.cuda.synchronize()
+        n = counts()
+        err = max_rel_tree(ref, from_striped(part, got))
+        if not err <= PAR_CN_RTOL:
+            raise AssertionError(f"31b f64 coarse={coarse}: partitioned CN "
+                                 f"{err:.3e} from serial > {PAR_CN_RTOL:g}")
+        for k in KERNELS:
+            n_par[k] += n[k]
+        log(f"[31b parallel_cn] f64 nc={mesh.nc}, {PAR_PARTS} partitions "
+            f"(n_loc {part.n_loc}, n_ext {part.n_ext}), "
+            f"{'coarse correction' if coarse else 'block-Jacobi'}: one "
+            f"step {err:.3e} from the serial assembled CN (bound "
+            f"{PAR_CN_RTOL:g}); FGMRES cycles of "
+            f"{PAR_CN_PARAMS['gmres_restart']}: serial "
+            f"{st.stats.get('ksp_cycles')}, partitioned "
+            f"{sh.stats.get('ksp_cycles')}; launches {n}")
+        cn_part = part
+    return n_par, cn_part
+
+
+def step_profile(fn):
+    """(device kernels, device ms) of one call of ``fn`` (device
+    activity alone)."""
+    torch.cuda.synchronize()
+    rows = device_rows(fn, host=False)
+    if not rows:
+        raise RuntimeError("the profiler saw no device kernel in a step")
+    return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
+
+
+def phase_parallel(smi):
+    """Phase 31: the partitioned path at the bench's width.  31a-b's f64
+    checks (:func:`phase_parallel_checks`), then 31a in f32, the serial step
+    and the PAR_PARTS-partition step side by side (1 warm-up and
+    PAR_STEPS timed steps each: ms/step, device ms/step and device
+    kernels of one step, launches per step): partitions on one card are
+    overhead, not scaling; 31c each kernel at one partition's shapes.
+    Returns ``(launches of the partitioned runs, {kernel: [(shape,
+    results)]})``."""
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+    n_par, cn_part = phase_parallel_checks()
+    t_checks = time.perf_counter() - t_all
+    ser, sh3, part, state, swe = parallel3d(dev, torch.float32)
+    state_s = to_striped(part, state)
+    runs = {}
+    # (each partition takes its own solver's fields, gathered once as the
+    # serial step's are)
+    for tag, step, st0, f in (
+            ("serial", ser._step, state, swe),
+            (f"{PAR_PARTS} partitions", sh3.step, state_s,
+             sh3.gather_swe_fields())):
+        st, t_warm = sync_time(lambda: step(st0, f, {}))
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(PAR_STEPS):
+            st = step(st, f, {})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+        n = counts()
+        kernels, dev_ms = step_profile(lambda: step(st, f, {}))
+        for k, v in st.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"31a f32 {tag}: non-finite {k}")
+        runs[tag] = (ms, dev_ms, kernels, n, st)
+        log(f"[31a parallel3d] f32 {tag}: {ms:.2f} ms/step ({PAR_STEPS} "
+            f"steps after a {t_warm * 1e3:.0f} ms warm-up), device "
+            f"{dev_ms:.3f} ms/step, {kernels} device kernels/step, "
+            f"launches per step "
+            + ", ".join(f"{k} {v / PAR_STEPS:g}" for k, v in n.items()))
+    (ms1, dm1, k1, _, s1), (msp, dmp, kp, n_sh, sp) = runs.values()
+    for k in KERNELS:
+        n_par[k] += n_sh[k]
+    drift = max_rel_tree(s1, from_striped(part, sp))
+    log(f"[31a parallel3d] f32 {PAR_PARTS} partitions against serial on "
+        f"one card (partitioning overhead, not scaling): ms/step x"
+        f"{msp / ms1:.2f}, device ms/step x{dmp / dm1:.2f}, device kernels "
+        f"x{kp / k1:.2f}; states after {PAR_STEPS + 1} steps "
+        f"{drift:.2e} apart (f32, Krylov to 1e-5); card: {smi}")
+    if min(n_par.values()) == 0:
+        raise AssertionError(f"phase 31: a kernel was not launched on the "
+                             f"partitioned path: {n_par}")
+    # 31c: each kernel at one partition's shapes
+    # (ring_mv over a partition's extended rows, block_diag_mv over its
+    # owned rows, as ShardedAssembledCN launches them)
+    shapes = {k: [] for k in KERNELS}
+    for p in (part, cn_part):
+        sub = p.submeshes[0]
+        # a partition's blocks are cold where the PAR_PARTS partitions'
+        # blocks together outgrow the L2 (the solve runs the others in
+        # between)
+        res = phase_kernel_ring(0, 0, False, sub,
+                                PAR_PARTS * 4 * 81 * sub.nc * 4 > 50e6,
+                                bjac_rows=p.n_loc)
+        of = f"partition 1/{PAR_PARTS} of nc={p.mesh.nc}"
+        shapes["ring_mv"].append((f"nc={sub.nc} ({of}, extended)", res))
+        shapes["block_diag_mv"].append(
+            (f"nc={p.n_loc} ({of}, owned)", res))
+    cols = part.submeshes[0].nc * 3
+    shapes["tridiag"] += [
+        (f"{cols}x{NZ3 + 1} x2 shared (partition 1/{PAR_PARTS})",
+         phase_kernel_tridiag(cols, NZ3 + 1, 2)),
+        (f"{cols}x{NZ3 + 1} (partition 1/{PAR_PARTS})",
+         phase_kernel_tridiag(cols, NZ3 + 1))]
+    log(f"[phase_parallel] {time.perf_counter() - t_all:.1f} s (31a-b f64 "
+        f"checks {t_checks:.1f} s); launches of the partitioned runs "
+        f"{n_par}")
+    return n_par, shapes
+
+
+def parallel_only():
+    """Phase 31 alone (``python3 chip_smoke.py parallel``): the device,
+    the build and phase 31; ends with the same last line."""
+    name = phase_device()
+    smi = card()
+    phase_build()
+    n, shapes = phase_parallel(smi)
+    print(json.dumps({"parallel_launches": n, "kernel_shapes": {
+        k: [{"shape": label, "dtype": str(dt)[6:],
+             **{f: v for f, v in res[(k, dt)].items() if f != "library"}}
+            for label, res in rows for dt in (torch.float32, torch.float64)]
+        for k, rows in shapes.items()}}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def examples_only():
     """Phase 30 alone (``python3 chip_smoke.py examples``): the device,
     the build and every script; ends with the same last line."""
@@ -5737,7 +6044,7 @@ def main():
     # solve, the velocity solve with its coefficients copied out to the
     # right-hand side's shape (no caller; the same bytes as the first
     # design moved) and a long column (no port shape)
-    shapes = {"ring_mv": ring, "block_diag_mv": ring, "tridiag": [
+    shapes = {"ring_mv": ring, "block_diag_mv": list(ring), "tridiag": [
         (f"{cols}x{rows} x2 shared", phase_kernel_tridiag(cols, rows, 2)),
         (f"{cols}x{rows}", phase_kernel_tridiag(cols, rows)),
         (f"{2 * cols}x{rows}", phase_kernel_tridiag(2 * cols, rows)),
@@ -5755,6 +6062,11 @@ def main():
     t0 = time.perf_counter()
     n3, ms3 = phase_slice3d(smi)
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+    # phase 31, the partitioned path, its counts set to 0 just before each
+    # partitioned run (early: the profiler's captures are whole here)
+    n_par, par_shapes = phase_parallel(smi)
+    for k in KERNELS:  # (ring_mv and block_diag_mv at their own rows)
+        shapes[k] += par_shapes[k]
     nm = {k: 0 for k in KERNELS}
     for phase, args in ((phase_model_ssprk33, (smi,)),
                         (phase_model_cn, (smi, n2, s2)),
@@ -5826,7 +6138,7 @@ def main():
         main_shape = shapes[k][0][1][(k, torch.float32)]
         row = {"name": k, "route": "cuda", "source": SOURCES[k][0],
                "replaces": SOURCES[k][1],
-               "launches": n3[k] + n2[k] + nm[k] + ng[k]
+               "launches": n3[k] + n2[k] + nm[k] + ng[k] + n_par[k]
                + sum(v[k] for v in new.values()),
                "launches_by_path": {"baroclinic3d": n3[k], "cn2d": n2[k],
                                     "flowsolver2d": nm[k],
@@ -5848,7 +6160,8 @@ def main():
                                     "sphere": new["sphere"][k],
                                     "adjoint": new["adjoint"][k],
                                     "io": new["io"][k],
-                                    "examples": new["examples"][k]},
+                                    "examples": new["examples"][k],
+                                    "parallel": n_par[k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5908,6 +6221,8 @@ if __name__ == "__main__":
         example_parity(sys.argv[2])
     elif sys.argv[1:] == ["examples"]:
         examples_only()
+    elif sys.argv[1:] == ["parallel"]:
+        parallel_only()
     elif sys.argv[1:] == ["profile_io"]:
         profile_io()
     else:

@@ -40,6 +40,7 @@ from thetis_tpu_torch.kernels import ringmv, tridiag  # noqa: E402
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from thetis_tpu_torch.utils.coordsys import (  # noqa: E402
     beta_plane_coriolis_params as t_beta)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 NX = NY = 6

@@ -65,6 +65,7 @@ from thetis_tpu_torch.equations.shallowwater_2d import (  # noqa: E402
 from thetis_tpu_torch.solvers.newton import NewtonParameters as TNP  # noqa: E402
 from thetis_tpu_torch.timeintegration.steppers import (  # noqa: E402
     CrankNicolson as TCN)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 LX, LY, NZ = 1e3, 8e2, 3

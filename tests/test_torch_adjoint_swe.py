@@ -14,7 +14,11 @@ initial-elevation cases run under ``-m slow``, as in the reference.
 The reference solver is built by the reference test's own set-up (or by
 ``test_torch_flowsolver2d``'s) and carried to the port by
 ``interop.flowsolver2d_from_reference``; both packages run the same
-Krylov path, so the gradients agree to 1e-10 of their largest entry."""
+Krylov path, so the gradients agree to 1e-10 of their largest entry.
+:func:`check_assembled_cn_gradient` holds the assembled CN's gradient
+(the ring solve's implicit-function adjoint) to the reference's, for
+``test_torch_model2d.py`` (the coarse correction) and
+``test_torch_solvers2d.py`` (the Schur fieldsplit)."""
 import numpy as np
 import pytest
 
@@ -28,13 +32,14 @@ pin_mesh_builders()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import thetis_tpu_torch.solvers.assembled as tas  # noqa: E402
 from thetis_tpu_torch.adjoint import (  # noqa: E402
     Control, ReducedFunctional, taylor_test)
 from thetis_tpu_torch.interop import flowsolver2d_from_reference  # noqa: E402
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from test_adjoint_swe import basic_setup  # noqa: E402
 from test_torch_flowsolver2d import (  # noqa: E402
-    one_torch_thread, meshes, reference_solver)
+    C0, HMIN, one_torch_thread, meshes, reference_solver)
 
 F64 = torch.float64
 
@@ -78,6 +83,55 @@ def u_integral(s, asm):
 
 def u_integral_elev_l2(s, asm):
     return asm.integrate(s["uv"][..., 0]) + asm.norm_l2(s["elev"]) ** 2
+
+
+ASSEMBLED_PARAMS = dict(ksp_rtol=1e-10, ksp_max_it=400, gmres_restart=40)
+
+
+class PerDofCoarse(tas.CoarseCorrection):
+    """The reference's coarse space whatever the solver asks for."""
+
+    def __init__(self, blocks, ring, mesh, target_size=None, fields=None):
+        super().__init__(blocks, ring, mesh, target_size=target_size)
+
+
+def check_assembled_cn_gradient(config, monkeypatch):
+    """The assembled semi-implicit CN's gradient through
+    ``differentiable_forward`` against ``jax.grad`` of the reference's:
+    one step on ``test_torch_flowsolver2d``'s 12x6 rectangle, with
+    respect to the drag field and the initial elevation, under the
+    two-level coarse correction (``cn_coarse``) or the Schur fieldsplit
+    (``cn_schur``, the port's counterpart of the reference's ``slow``
+    ``test_assembled_pc.py::test_fieldsplit_cn_step_and_gradient``).
+
+    The coarse case runs both packages on the reference's coarse space
+    (one coarse dof per aggregate and packed component, patched into the
+    port's solver) at a wave CFL of 4.5, where that space converges; the
+    port's own per-field space is held by its Taylor rate in this
+    file.  Both
+    packages solve to 1e-10 on the same Krylov path: the gradients agree
+    to 1e-10 of their largest entry."""
+    jm, tm = meshes("rect")
+    dt = 9.0 * HMIN / C0 if config == "cn_coarse" else None
+    ref = reference_solver(jm, "rect", config, dt=dt, params=ASSEMBLED_PARAMS)
+    if config == "cn_coarse":
+        monkeypatch.setattr(tas, "CoarseCorrection", PerDofCoarse)
+    port = flowsolver2d_from_reference(ref, tm)
+    want = {"cn_coarse": "CoarseCorrection",
+            "cn_schur": "SchurFieldsplitPC"}[config]
+    assert type(ref.timestepper.coarse).__name__ == want
+    assert want in [c.__name__ for c in
+                    type(port.timestepper.coarse).__mro__]
+    rng = np.random.RandomState(3)
+    c = 2.5e-3 * (1.0 + rng.rand(jm.nv))
+    e0 = np.asarray(ref.fields.elev_2d.data)
+    tp, jp, _ = gradients(ref, port, ["quadratic_drag_coefficient",
+                                      "initial_elev"],
+                          u_integral_elev_l2, 1, [c, e0])
+    agree(tp, jp)
+    st = port.timestepper.stats
+    assert st["ksp_rel_residual"] < 1e-8
+    assert st["adjoint_ksp_cycles"] >= 1
 
 
 def test_steady_state_gradient_matches_reference():

@@ -43,6 +43,7 @@ from thetis_tpu_torch.timeintegration.steppers import (  # noqa: E402
 from thetis_tpu_torch.interop import (  # noqa: E402
     state_from_numpy, state_to_numpy, fields_from_numpy)
 from thetis_tpu_torch.kernels import ringmv  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 LX, LY = 1e4, 8e3

@@ -235,15 +235,14 @@ def covered():
     it."""
     import test_torch_examples_2d as e2
     import test_torch_examples_3d as e3
-    import test_torch_examples_inversion as inv
 
     return {"demos": sorted(SCRIPTS), "examples_2d": sorted(e2.SCRIPTS),
             "examples_3d": sorted(e3.SCRIPTS),
-            "examples_inversion": sorted(inv.SCRIPTS)}
+            "examples_inversion": sorted(e2.INVERSION_SCRIPTS)}
 
 
 def test_every_script_is_covered():
-    """The scripts named in the four files are the glob of demos/*.py and
+    """The scripts named in the three files are the glob of demos/*.py and
     examples/**/*.py less the helper modules, each once."""
     named = [p for group in covered().values() for p in group]
     assert len(named) == len(set(named))

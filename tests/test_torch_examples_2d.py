@@ -1,5 +1,5 @@
-"""The repo's 2D examples (``examples/*/`` on ``FlowSolver2d``, the
-inversions aside) through the port, from their own source, on the CPU in
+"""The repo's 2D examples (``examples/*/`` on ``FlowSolver2d``; the
+inversions below) through the port, from their own source, on the CPU in
 f64 (``chip_smoke.run_script``: the script rewritten by
 ``chip_smoke.REWRITE_TABLE``, nothing else): each passes its own checks;
 ``channel2d`` and ``balzano`` also match ``thetis_tpu`` (CPU, x64) field
@@ -10,9 +10,23 @@ set, the model takes the example's horizontal viscosity, 5e-2 m^2/s, as
 the water's, and its 1 mm grains' dimensionless diameter is 0.019); the
 port fails it the same way.
 
+The repo's three inversion examples (channel friction, headland
+friction, the Tohoku source) run through the port too (their ``jax.jit``
+of a step is the step, their jnp source models torch functions that the
+adjoint differentiates), each passing its own checks; each also runs
+through ``thetis_tpu`` in ``slow``, and the records of its truth run and
+its cost functionals match the port's.  The port's runs take ~1-3 min
+on one CPU thread (8, 5 x 2 and 6 + 2 L-BFGS-B iterations of gradients
+through the CN solve): all in ``slow`` but the channel inversion.
+
 Tolerance: rtol 1e-9 of each field's scale (``test_torch_demos.py``),
 1e-7 for the two NH scripts and 1e-4 for the tidal array
-(:data:`PARITY_RTOL`, with the reasons)."""
+(:data:`PARITY_RTOL`, with the reasons).  The inversions: the truth
+run's station records to 1e-9 of the largest record of all stations (a
+station near a node of the wave records ~1e-8 m); the first cost
+functional to 1e-9 and the last to 1e-6 (L-BFGS-B's line search takes
+the gradients' roundoff-level differences into its steps)."""
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
@@ -99,3 +113,30 @@ def test_example_fails_as_the_reference(script, tmp_path):
     assert chip_smoke.fails_as_the_reference(script, ref.value, ref_ns)
     assert type(port.value) is type(ref.value)
     assert str(port.value) == str(ref.value)
+
+
+#: the inversion examples
+INVERSION_SCRIPTS = {
+    "examples/channel_inversion/inverse_problem.py": (),
+    "examples/headland_inversion/inverse_problem.py": SLOW,
+    "examples/tohoku_inversion/inverse_problem.py": SLOW,
+}
+
+
+@pytest.mark.parametrize("script", script_params(INVERSION_SCRIPTS))
+def test_inversion_runs_through_the_port(script):
+    ns = run_port(script).namespace
+    assert np.isfinite(ns["J1"]) and ns["J1"] < ns["J0"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("script", sorted(INVERSION_SCRIPTS))
+def test_inversion_matches_the_reference(script, tmp_path):
+    ref = run_reference(script, tmp_path).namespace
+    port = run_port(script).namespace
+    scale = max(np.abs(np.asarray(v)).max() for v in ref["samples"].values())
+    for name, want in ref["samples"].items():
+        err = np.abs(np.asarray(port["samples"][name]) - np.asarray(want))
+        assert err.max() <= 1e-9 * scale, name
+    assert abs(port["J0"] - ref["J0"]) <= 1e-9 * abs(ref["J0"])
+    assert abs(port["J1"] - ref["J1"]) <= 1e-6 * abs(ref["J1"])

@@ -31,6 +31,7 @@ from thetis_tpu_torch.mesh.extruded import ExtrudedMesh as TExt  # noqa: E402
 from thetis_tpu_torch.fem.functionspace import FunctionSpace as TFS  # noqa: E402
 from thetis_tpu_torch.fem.assembly import DGAssembler as TAsm  # noqa: E402
 from thetis_tpu_torch.fem.assembly3d import Assembler3D as TA3  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 LX, LY, NZ = 1e3, 8e2, 3

@@ -10,7 +10,11 @@ each option the 2D slice newly takes.
 
 Tolerances: implicit steps 1e-9 and the explicit ``iterate`` runs 1e-12
 of each field's max; ``print_state`` lines equal but for the CPU-time
-field; the demo's volume conserved to 1e-10 (relative)."""
+field; the demo's volume conserved to 1e-10 (relative).  The gradient
+of one assembled CN step under the coarse correction through
+``differentiable_forward`` is held to ``jax.grad`` of the reference's
+(1e-10 of its largest entry; ``test_torch_adjoint_swe.py``'s
+:func:`check_assembled_cn_gradient`)."""
 import os
 
 import numpy as np
@@ -36,6 +40,7 @@ from thetis_tpu_torch.model.flowsolver2d import FlowSolver2d  # noqa: E402
 from thetis_tpu_torch.solvers.newton import (  # noqa: E402
     NewtonParameters as TNewtonParameters)
 from thetis_tpu_torch.utils.constant import Constant as TConstant  # noqa: E402
+from test_torch_adjoint_swe import check_assembled_cn_gradient  # noqa: E402
 from test_torch_flowsolver2d import (  # noqa: E402
     CONFIGS, LX, meshes, one_torch_thread, reference_solver, run_pair)
 
@@ -579,3 +584,7 @@ def test_differentiable_forward_runs(control):
     with torch.no_grad():
         fd = (float(fwd(c + h * d)) - float(fwd(c - h * d))) / (2 * h)
     assert float((g * d).sum()) == pytest.approx(fd, rel=1e-6)
+
+
+def test_assembled_cn_coarse_gradient_matches_reference(monkeypatch):
+    check_assembled_cn_gradient("cn_coarse", monkeypatch)

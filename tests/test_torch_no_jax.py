@@ -58,6 +58,11 @@ IO = ("model.exporter", "model.callback", "model.optimisation",
       "model.diagnostics", "model.forcing", "model.forcing_adapters",
       "utils.tides", "utils.netcdf_io", "utils.interpolation",
       "utils.timezone", "utils.coordsys")
+#: the partitioned path: the partition tables, the halo refresh and the
+#: reductions, the sharded equation, assembled CN and 3D step
+PARALLEL = ("parallel", "parallel.partition", "parallel.submesh",
+            "parallel.shard", "parallel.sharded", "parallel.assembled_sharded",
+            "parallel.sharded3d")
 
 
 def test_import_pulls_in_no_jax():
@@ -71,7 +76,7 @@ def test_import_pulls_in_no_jax():
     bad = lines[1]
     assert bad == "", f"port imported {bad}"
     names = set(lines[2].split(","))
-    missing = [m for m in MODEL2D + MODEL3D + IO
+    missing = [m for m in MODEL2D + MODEL3D + IO + PARALLEL
                if f"thetis_tpu_torch.{m}" not in names]
     assert not missing, missing
 

@@ -39,6 +39,7 @@ from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from thetis_tpu_torch.solvers import assembled as tas  # noqa: E402
 from thetis_tpu_torch.kernels import ringmv  # noqa: E402
 from thetis_tpu_torch.kernels.cases import RAGGED_NC, ragged_case  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 MESHES = {
     "rect": (lambda g, **kw: g.RectangleMesh(8, 4, 1e3, 5e2, **kw)),

@@ -8,7 +8,11 @@ Tolerances: index tables and colours exact; CG P1 values 1e-15 (one
 gather, no arithmetic); probed blocks rtol 1e-12; one preconditioner
 application rtol 1e-10 (fixed Krylov sweeps, iterated roundoff); the
 Newton solve rtol 1e-10 with the same iteration count.  Each carries an
-atol of the same factor times the array's scale."""
+atol of the same factor times the array's scale.  The gradient of one
+assembled CN step under the Schur fieldsplit (its transpose in the ring
+solve's adjoint) is held to ``jax.grad`` of the reference's (1e-10 of
+its largest entry; ``test_torch_adjoint_swe.py``'s
+:func:`check_assembled_cn_gradient`)."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -44,6 +48,7 @@ from thetis_tpu_torch.solvers import schur as tsc  # noqa: E402
 from thetis_tpu_torch.solvers import newton as tnw  # noqa: E402
 from thetis_tpu_torch.interop import (  # noqa: E402
     state_from_numpy, state_to_numpy, fields_from_numpy)
+from test_torch_adjoint_swe import check_assembled_cn_gradient  # noqa: E402
 from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
@@ -468,3 +473,7 @@ def test_breakdown_guard_schur_fieldsplit():
     res_port = _rel_res(t64._S, z32, b)
     assert res_ref >= 10.0 * res_port, (res_ref, res_port)
     close(z32.double(), z64, 1e-4)
+
+
+def test_assembled_cn_schur_gradient_matches_reference(monkeypatch):
+    check_assembled_cn_gradient("cn_schur", monkeypatch)

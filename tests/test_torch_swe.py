@@ -39,6 +39,7 @@ from thetis_tpu_torch.solvers.newton import _fgmres_flat as t_fgmres  # noqa: E4
 from thetis_tpu_torch.interop import (  # noqa: E402
     state_from_numpy, state_to_numpy, fields_from_numpy, fields_to_numpy,
     bathymetry_from_numpy, bathymetry_to_numpy)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 _WAVE = frozenset(["ExternalPressureGradientTerm", "HUDivTerm"])

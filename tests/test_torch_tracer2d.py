@@ -44,6 +44,7 @@ from thetis_tpu_torch.fem.functionspace import (  # noqa: E402
 from thetis_tpu_torch.interop import (  # noqa: E402
     bathymetry_from_numpy, fields_from_numpy, fields_to_numpy)
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 LABELS = ("tracer_2d", "salt_2d")

@@ -26,6 +26,7 @@ from thetis_tpu.kernels import tridiag_solve as j_solve  # noqa: E402
 from thetis_tpu_torch.kernels import tridiag  # noqa: E402
 from thetis_tpu_torch.kernels.cases import (RAGGED_TRIDIAG,  # noqa: E402
                                             ragged_tridiag_case)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 NC3, NZ3 = 4608, 12  # the 3D bench's columns and layers
 

@@ -90,10 +90,16 @@ class Mesh2d:
 
         self._build_facets(boundary_markers)
         self._build_geometry()
+        self._build_device_tables()
+
+    def _build_device_tables(self):
+        """The device tensors of the host tables, on ``self.device`` in
+        ``self.dtype`` (index tables int64)."""
         for tname in _DEVICE_TABLES:
             arr = getattr(self, tname + "_np")
             if arr.dtype.kind == "f":
-                t = torch.as_tensor(arr, dtype=dtype, device=self.device)
+                t = torch.as_tensor(arr, dtype=self.dtype,
+                                    device=self.device)
             else:
                 t = torch.as_tensor(arr.astype(np.int64), device=self.device)
             setattr(self, tname, t)

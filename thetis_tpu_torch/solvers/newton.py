@@ -105,7 +105,26 @@ def _lstsq_pinv(H, beta):
     return torch.linalg.pinv(Hd) @ e1, e1
 
 
-def _arnoldi_step(V, j, w, brk, tiny):
+#: the Krylov vectors' reductions and combinations ``(dots, norm, comb)``
+#: on one flat vector (:func:`_partitioned` for a split one)
+_SERIAL = (lambda V, w: V @ w, torch.linalg.vector_norm,
+           lambda c, V: c @ V)
+
+
+def _partitioned(allreduce):
+    """``(dots, norm, comb)`` on ``(D, n_d)`` vectors split over D
+    partitions: every dot product and norm sums the partitions' partials
+    through ``allreduce`` (in partition order)."""
+    def dots(V, w):
+        return allreduce(torch.einsum("mdn,dn->dm", V, w))
+
+    def norm(v):
+        return torch.sqrt(allreduce((v * v).sum(-1)))
+
+    return dots, norm, lambda c, V: torch.tensordot(c, V, 1)
+
+
+def _arnoldi_step(V, j, w, brk, tiny, red=_SERIAL):
     """Gram-Schmidt of ``w = A M v_j`` against all rows of ``V`` (rows
     > j are still zero) and the next basis vector.  Returns ``(h,
     hj1)`` and writes ``V[j + 1]``.
@@ -116,11 +135,14 @@ def _arnoldi_step(V, j, w, brk, tiny):
     (scale-free).  The reference tests ``hj1 > eps * beta`` (beta the
     right-hand side's norm), which mixes residual and operator units: in
     f32, when beta is large, it fires on every step and the solve
-    collapses to one Arnoldi step (ROADMAP C)."""
-    wnorm = torch.linalg.vector_norm(w)
-    h = V @ w                                     # (m+1,)
-    w = w - h @ V
-    hj1 = torch.linalg.vector_norm(w)
+    collapses to one Arnoldi step (ROADMAP C).  Both norms of the guard
+    go through ``red``, so on a split vector every partition takes the
+    same branch."""
+    dots, norm, comb = red
+    wnorm = norm(w)
+    h = dots(V, w)                                # (m+1,)
+    w = w - comb(h, V)
+    hj1 = norm(w)
     V[j + 1] = torch.where(hj1 > brk * wnorm,
                            w / torch.clamp_min(hj1, tiny),
                            torch.zeros_like(w))
@@ -152,7 +174,8 @@ def fixed_gmres(A, M, b, m):
     return y.to(b.dtype) @ Z
 
 
-def _fgmres_flat(mv, b, M, rtol, restart, max_cycles, stats=None):
+def _fgmres_flat(mv, b, M, rtol, restart, max_cycles, stats=None,
+                 allreduce=None):
     """Restarted *flexible* GMRES (FGMRES, right-preconditioned) on flat
     vectors: classic Arnoldi + small dense least-squares per cycle
     (Saad 1993; PETSc ``-ksp_type fgmres``).
@@ -163,31 +186,40 @@ def _fgmres_flat(mv, b, M, rtol, restart, max_cycles, stats=None):
     :arg rtol: relative tolerance on the true residual, as a float
     :arg stats: optional dict; ``ksp_cycles`` is increased by the
         number of restart cycles run
+    :arg allreduce: optional; sums a tensor of per-partition partial
+        reductions over its leading axis, in partition order
+        (:func:`~thetis_tpu_torch.parallel.shard.allreduce`, the
+        reference's ``lax.psum`` hook).  The vectors are then ``(D, n_d)``
+        tensors, row d partition d's entries, and every dot product and
+        norm, the breakdown guard's two included, is the sum of the
+        partitions' partials: the PETSc VecDot-allreduce pattern
+        (``parallel/assembled_sharded.py``).
     :returns: ``(x, rnorm, bnorm)`` with the projected residual norm
         ``rnorm`` and ``bnorm = ||b||`` as Python floats
 
     The small (m+1, m) least squares runs on the host in float64 (see
     :func:`_lstsq_pinv`); its result decides the loop, so each cycle
     costs one host sync."""
-    n = b.shape[0]
     m = int(restart)
     fi = torch.finfo(b.dtype)
     tiny, brk = fi.tiny, fi.eps
+    red = _SERIAL if allreduce is None else _partitioned(allreduce)
+    _, norm, comb = red
 
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(norm(b))
     x = torch.zeros_like(b)
     it = 0
     rnorm = math.inf
     while it < max_cycles and rnorm > rtol * bnorm:
         r = b - mv(x)
-        beta = torch.linalg.vector_norm(r)
-        V = b.new_zeros((m + 1, n))
+        beta = norm(r)
+        V = b.new_zeros((m + 1,) + b.shape)
         V[0] = r / torch.clamp_min(beta, tiny)
-        Z = b.new_zeros((m, n))
+        Z = b.new_zeros((m,) + b.shape)
         H = b.new_zeros((m + 1, m))
         for j in range(m):
             z = M(V[j])
-            h, hj1 = _arnoldi_step(V, j, mv(z), brk, tiny)
+            h, hj1 = _arnoldi_step(V, j, mv(z), brk, tiny, red)
             H[:, j] = h
             H[j + 1, j] = hj1
             Z[j] = z
@@ -195,7 +227,7 @@ def _fgmres_flat(mv, b, M, rtol, restart, max_cycles, stats=None):
             "cpu", torch.float64)
         Hh = host[:-1].reshape(m + 1, m)
         y, e1 = _lstsq_pinv(Hh, host[-1])
-        x = x + y.to(b.dtype).to(b.device) @ Z
+        x = x + comb(y.to(b.dtype).to(b.device), Z)
         # projected residual estimate ||beta e1 - H y|| == ||b - A x|| in
         # exact arithmetic; the next cycle restarts from the true residual
         rnorm = float(torch.linalg.vector_norm(e1 - Hh @ y))
