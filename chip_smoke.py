@@ -266,7 +266,11 @@ Phases, each printing its lines:
 
 30. the demos and examples (``python3 chip_smoke.py examples`` runs it
     alone): ``Function.interpolate`` on the card (a callable of card
-    tensors, a numpy one), the rewrite table, then every script of
+    tensors, a numpy one), the rest of ``Function``'s user API on the
+    card against the CPU (``function_api_checks``: ``+ - *`` both ways
+    with Functions, numbers, tensors and numpy arrays, component
+    indexing, ``dat``, ``project``, and a ``copy`` that shares no
+    memory), the rewrite table, then every script of
     demos/ and examples/ but the helper modules (``example_scripts``),
     f64, each in a process of its own (``python3 chip_smoke.py example
     <path>``), eight at a time, the longest first; the whole script
@@ -5669,6 +5673,76 @@ def interpolate_checks(dev=torch.device("cuda")):
         "coordinates; each equals the CPU's")
 
 
+def function_api_checks(dev=torch.device("cuda")):
+    """The user API of ``Function`` on the card: the same seeded dofs in a
+    DG1 and a vector DG1 Function on ``dev`` and on the CPU (f64), every
+    operator result a tensor on ``dev`` equal to the CPU's to 1e-14 of
+    scale; a numpy operand lands on ``dev`` in the Function's dtype (f32
+    on an f32 mesh); ``copy()`` on ``dev`` shares no memory with its
+    original, whose dofs an in-place update of the copy leaves as they
+    were."""
+    rng = np.random.default_rng(15)
+    a = {}
+    out = {}
+    worst = {}
+    for dim in (1, 2):
+        for d in (dev, torch.device("cpu")):
+            mesh = RectangleMesh(8, 4, 2e3, 1e3, device=d,
+                                 dtype=torch.float64)
+            space = FunctionSpace(mesh, "DG", 1, dim=dim)
+            if dim not in a:
+                a[dim] = [rng.standard_normal(space.dof_shape())
+                          for _ in range(3)]
+            fd, gd, arr = a[dim]
+            f = Function(space, name="f", data=fd)
+            g = Function(space, name="g", data=gd)
+            t = torch.as_tensor(arr, device=d)
+
+            def field(x, y):
+                s = torch.sin(x / 1e3) * y / 1e3
+                return s if dim == 1 else torch.stack(
+                    [s, torch.cos(y / 1e3)], -1)
+
+            res = [f + g, 2.5 + f, f + t, t + f, f + arr, arr + f,
+                   f - g, f - 2.5, 2.0 - f, t - f, f - arr, arr - f,
+                   f * g, 3.0 * f, f * t, f * arr, arr * f,
+                   f * np.float64(0.75), f.dat.data, f[0], f[1],
+                   Function(space).project(field).data,
+                   Function(space).project(arr).data]
+            for r in res:
+                if not isinstance(r, torch.Tensor) or r.device.type != \
+                        d.type:
+                    raise AssertionError(
+                        f"Function API on {d}: {type(r)} on "
+                        f"{getattr(r, 'device', None)}")
+            c = f.copy()
+            before = f.data.clone()
+            c.data.add_(1.0)
+            if (c.data.data_ptr() == f.data.data_ptr()
+                    or not torch.equal(f.data, before)
+                    or c.data.device.type != d.type
+                    or not torch.equal(c.data, before + 1.0)):
+                raise AssertionError(f"Function.copy on {d} is aliased")
+            res.append(c.data)
+            out[(dim, d.type)] = res
+        worst[dim] = max(max_rel(x.cpu(), y) for x, y in
+                         zip(out[(dim, dev.type)], out[(dim, "cpu")]))
+        if worst[dim] > 1e-14:
+            raise AssertionError(f"Function API, dim {dim}: the card "
+                                 f"against the CPU {worst[dim]:.3e}")
+    mesh32 = RectangleMesh(8, 4, 2e3, 1e3, device=dev, dtype=torch.float32)
+    f32 = Function(FunctionSpace(mesh32, "DG", 1), data=a[1][0])
+    for r in (f32 + a[1][2], a[1][2] - f32, f32 * a[1][2]):
+        if r.dtype != torch.float32 or r.device.type != dev.type:
+            raise AssertionError(f"a numpy operand gave {r.dtype} on "
+                                 f"{r.device}")
+    log(f"[30 function api] + - * both ways, indexing, dat, project and "
+        f"copy on {dev.type} against the CPU, {len(out[(1, 'cpu')])} "
+        f"results each, f64: scalar DG1 {worst[1]:.3e}, vector DG1 "
+        f"{worst[2]:.3e} (bound 1e-14); numpy operands land on "
+        f"{dev.type} in the Function's dtype; copy() shares no memory")
+
+
 def example_modes(scripts):
     """Phase 30's processes: each script of ``scripts`` (the longest
     first) and the GPU-against-CPU scripts; logs the rewrite table."""
@@ -5961,6 +6035,7 @@ def examples_only():
     smi = card()
     phase_build()
     interpolate_checks()
+    function_api_checks()
     scripts = example_scripts()
     t0 = time.perf_counter()
     lines = finish_cases(start_cases(example_modes(scripts),
@@ -6122,6 +6197,7 @@ def main():
     # examples (phase 30), each in a process that sets its counts to 0
     # just before its script, beside the checks
     interpolate_checks()
+    function_api_checks()
     scripts = [p for p in example_scripts() if p not in EXAMPLES_RUN_EARLIER]
     t0 = time.perf_counter()
     new["examples"], secs = phase_cases(

@@ -183,6 +183,15 @@ def test_eta_mass_inverse_matches_reference(eq_pair):
     close(te.eta_mass_apply(b), r, 1e-10)
 
 
+def test_eta_mass_inverse_is_the_references_name(eq_pair):
+    """``eta_mass_inverse``, the reference's name, is the port's
+    ``mass_inverse_elev`` (held to the reference above)."""
+    _, te = eq_pair
+    assert type(te).eta_mass_inverse is type(te).mass_inverse_elev
+    r = tensor(np.random.default_rng(6).standard_normal(te.n_eta))
+    assert torch.equal(te.eta_mass_inverse(r), te.mass_inverse_elev(r))
+
+
 def test_cg2_mass_inverse_repairs_the_lumped_pcg(eq_pair):
     """The reference's lumped CG2 mass (``shallowwater_dgcg.py:56-60``) is
     zero at the vertices up to roundoff (a P2 vertex basis function

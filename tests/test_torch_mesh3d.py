@@ -203,6 +203,17 @@ def test_mass(case, name, k):
                 geom=True))
 
 
+def test_mass_matrices(case):
+    """The dense 6x6 blocks, and their action equals ``mass_apply``'s."""
+    got, want = both(case, "mass_matrices", geom=True)
+    close(got, want)
+    u = case.rand(case.jm.nc, 3, NZ, 2)
+    Mu = torch.einsum("clij,clj->cli", got, torch.tensor(
+        u.transpose(0, 2, 1, 3).reshape(case.jm.nc, NZ, 6)))
+    close(Mu.reshape(case.jm.nc, NZ, 3, 2).permute(0, 2, 1, 3),
+          case.ta.mass_apply(torch.tensor(u), case.tg).numpy())
+
+
 def test_mass_inverse_inverts_mass_apply(case):
     u = torch.tensor(case.rand(case.jm.nc, 3, NZ, 2, 2))
     back = case.ta.mass_inverse(case.ta.mass_apply(u, case.tg), case.tg)

@@ -184,6 +184,26 @@ def test_assembler_ops(kind, op):
     close(got, want)
 
 
+#: the rest of the assembler's public methods: name -> (method, input
+#: shapes in (nc, nv) terms)
+API_OPS = {"both_gtabs": ("both_gtabs", []),
+           "facet_midpoint_data": ("facet_midpoint_data", [("nv",)]),
+           "project_rhs_s": ("project_rhs", [("nc", 4)]),
+           "project_rhs_v": ("project_rhs", [("nc", 4, 3)])}
+
+
+@pytest.mark.parametrize("kind", sorted(MESHES))
+@pytest.mark.parametrize("op", sorted(API_OPS))
+def test_assembler_api_methods(kind, op):
+    jm, _, ja, ta = pair(kind)
+    meth, shapes = API_OPS[op]
+    rng = np.random.default_rng(11)
+    inp = [rng.standard_normal([{"nc": jm.nc, "nv": jm.nv}.get(n, n)
+                                for n in shape]) for shape in shapes]
+    want = getattr(ja, meth)(*[jnp.asarray(a) for a in inp])
+    close(getattr(ta, meth)(*[torch.tensor(a) for a in inp]), want)
+
+
 #: evaluations a user's script hands host data (``asm.norm_l2(
 #: np.asarray(...))``): the reference takes numpy arrays, so does the port
 HOST_OPS = {"cell_values_s": ("cell_values", "dofs_s"),

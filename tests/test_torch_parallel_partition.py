@@ -151,6 +151,14 @@ def test_partition_devices():
     assert THalo(tm, 8).devices == [tm.device] * 8
 
 
+def test_sharded_exports_make_device_mesh():
+    """``parallel.sharded.make_device_mesh``, as the reference's
+    ``sharded.py`` defines it beside ``shard.py``'s: the same function."""
+    from thetis_tpu_torch.parallel import sharded
+    assert sharded.make_device_mesh is shard.make_device_mesh
+    assert sharded.make_device_mesh(2, ["cpu"] * 2) == [torch.device("cpu")] * 2
+
+
 def test_allreduce_sums_in_partition_order():
     parts = torch.tensor([1e16, 1.0, -1e16, 1.0], dtype=torch.float64)
     assert float(shard.allreduce(parts)) == ((1e16 + 1.0) - 1e16) + 1.0

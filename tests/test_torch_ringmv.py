@@ -247,6 +247,14 @@ def test_batched_inverse_matches_gauss_jordan():
     close(tas.batched_inv_small_T(torch.tensor(A)), want, rtol=1e-12)
 
 
+def test_batch_leading_inverse_matches_gauss_jordan():
+    """``batched_inv_small``, the reference's (n, d, d) layout."""
+    rng = np.random.default_rng(9)
+    A = rng.standard_normal((40, 6, 6)) + 8.0 * np.eye(6)
+    want = jas.batched_inv_small(jnp.asarray(A))
+    close(tas.batched_inv_small(torch.tensor(A)), want, rtol=1e-12)
+
+
 def bjac_case(nc, seed):
     rng = np.random.default_rng(seed)
     return rng.standard_normal((9, 9, nc)), rng.standard_normal((9, nc))

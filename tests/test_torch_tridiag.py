@@ -72,6 +72,17 @@ def test_matches_reference_and_dense(n):
     assert dense_residual(ops, got) < 1e-10
 
 
+def test_package_exports_the_solve():
+    """``thetis_tpu_torch.kernels.tridiag_solve``, as the reference's
+    ``thetis_tpu.kernels`` exports it."""
+    from thetis_tpu_torch.kernels import tridiag_solve
+    assert tridiag_solve is tridiag.tridiag_solve
+    ops = system([(3,)] * 4, 13, seed=4)
+    np.testing.assert_allclose(
+        tridiag_solve(*(torch.tensor(o) for o in ops)).numpy(),
+        np.asarray(j_solve(*(jnp.asarray(o) for o in ops))), rtol=1e-12)
+
+
 @pytest.mark.parametrize("case", ["rhs_lead", "coeff_lead", "mixed"])
 def test_broadcast_batch_axes(case):
     """Operands broadcast over the leading axes, as

@@ -149,6 +149,8 @@ class ShallowWaterEquationsDGCG(ShallowWaterEquations):
         """The consistent CG2 mass inverse: Jacobi PCG, 30 iterations."""
         return self._eta_pcg(r)
 
+    eta_mass_inverse = mass_inverse_elev  # the reference's name
+
     def norm_elev(self, eta):
         """L2 norm of a CG2 elevation field."""
         return torch.sqrt(torch.clamp_min(

@@ -138,6 +138,10 @@ class DGAssembler:
         g = torch.einsum("qdj,cd...->cq...j", self.dphi_cg1, u)
         return torch.einsum("cq...j,cji->cq...i", g, self.mesh.Jinv)
 
+    def both_gtabs(self):
+        """Physical facet basis gradients, both sides: (nf, 2, nqf, nd, 2)."""
+        return self.both_gtabs_c
+
     def _gather_sides(self, u):
         """Gather both-side cell dofs: (nc, nd[, k]) -> (nf, 2, nd[, k])."""
         return u[self.mesh.facet_cells]
@@ -151,6 +155,14 @@ class DGAssembler:
         """(nc, nd[, k]) -> (nf, 2, nqf[, k], 2)."""
         return torch.einsum("fsqdi,fsd...->fsq...i", self.both_gtabs_c,
                             self._gather_sides(u))
+
+    def facet_midpoint_data(self, vertex_field):
+        """A P1CG (per-vertex) coefficient at the facet quad points:
+        (nv,) -> (nf, nqf), linear along the facet."""
+        v = self._dofs(vertex_field)
+        fv = self.mesh.facet_verts
+        a, b = v[fv[:, 0]], v[fv[:, 1]]
+        return a[:, None] + (b - a)[:, None] * self.space.tab("qt")[None, :]
 
     # ======================= projection ================================
     def cell_to_dofs(self, acc):
@@ -221,6 +233,10 @@ class DGAssembler:
         inverse)."""
         return torch.einsum("de,ce...->cd...", self.Mref_inv, r) / _wexpand(
             self.mesh.detJ[:, None], r, 2)
+
+    def project_rhs(self, fq):
+        """L2-project quad-point values (nc, nq[, k]) onto DG dofs."""
+        return self.mass_inverse(self.cell_to_dofs(fq))
 
     # ======================= integrals =================================
     def integrate_cellq(self, fq):

@@ -309,6 +309,14 @@ class Assembler3D:
         """Apply ``(Mh (x) Mv)`` to u, axes (c, node, layer, vnode[, k])."""
         return torch.einsum("clab,pr,cblr...->calp...", Mh, Mv, u)
 
+    def mass_matrices(self, geom):
+        """Dense per-(cell, layer) 6x6 mass matrices (nc, nz, 6, 6), dof
+        (node, vnode) at row ``2 * node + vnode`` (for inspection and
+        tests; the step applies the Kronecker factors)."""
+        Mh = self._mass_h(geom)
+        M = torch.einsum("clab,pr->clapbr", Mh, self.Mv)
+        return M.reshape(M.shape[0], M.shape[1], 6, 6)
+
     def mass_apply(self, u, geom):
         return self._kron_apply(self._mass_h(geom), self.Mv, u)
 

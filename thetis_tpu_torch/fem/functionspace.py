@@ -149,7 +149,9 @@ def get_functionspace(mesh, h_family, h_degree, vector=False, dim=2,
 
 
 class Function:
-    """A field: dof tensor + space."""
+    """A field: dof tensor + space, with the reference's user API
+    (``assign``, ``interpolate``, ``project``, ``copy``, ``dat``, ``+ -
+    *`` both ways and component indexing)."""
 
     def __init__(self, function_space, name=None, data=None):
         self.function_space = function_space
@@ -187,6 +189,61 @@ class Function:
                 xy = xy.cpu()
                 expr = expr(xy[..., 0], xy[..., 1])
         return self.assign(expr)
+
+    def project(self, expr):
+        # for the supported nodal spaces interpolation == projection of
+        # nodal data; true L2 projection comes with the operator layer
+        return self.interpolate(expr)
+
+    def copy(self, deepcopy=True):
+        """A new Function on the same space with a copy of the dofs: the
+        reference shares its immutable array, a tensor is cloned so that
+        an in-place update of one leaves the other as it was (``deepcopy``
+        is accepted and ignored, as in the reference)."""
+        return Function(self.function_space, name=self.name,
+                        data=self.data.clone())
+
+    @property
+    def dat(self):  # ``f.dat.data``, as in firedrake scripts
+        return self
+
+    # -- arithmetic: tensors out, as the reference returns arrays -------
+    #: numpy's operators defer to the reflected ones below, so
+    #: ``array - f`` is ``f.__rsub__(array)`` (a tensor), not an object
+    #: array holding one field per element
+    __array_ufunc__ = None
+
+    def _operand(self, o):
+        """A Function's dofs; a numpy array or scalar on the dofs' device
+        and in their dtype (``assign``'s rule); anything else as given."""
+        if isinstance(o, Function):
+            return o.data
+        if isinstance(o, (np.ndarray, np.generic)):
+            return torch.as_tensor(o, dtype=self.data.dtype,
+                                   device=self.data.device)
+        return o
+
+    def __add__(self, o):
+        return self.data + self._operand(o)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self.data - self._operand(o)
+
+    def __rsub__(self, o):
+        return self._operand(o) - self.data
+
+    def __mul__(self, o):
+        return self.data * self._operand(o)
+
+    __rmul__ = __mul__
+
+    def __getitem__(self, idx):
+        """The component ``idx`` of a vector field's dofs, else the dofs
+        at ``idx``."""
+        return (self.data[..., idx] if self.function_space.dim > 1
+                else self.data[idx])
 
     def __repr__(self):
         return f"Function({self.name}, {self.function_space})"

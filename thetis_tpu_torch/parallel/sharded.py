@@ -24,9 +24,9 @@ rebound.
 import numpy as np
 import torch
 
-from .shard import halo_extend
+from .shard import halo_extend, make_device_mesh
 
-__all__ = ["ShardedEquation"]
+__all__ = ["ShardedEquation", "make_device_mesh"]
 
 
 class ShardedEquation:

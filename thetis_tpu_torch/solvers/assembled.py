@@ -51,7 +51,8 @@ from ..kernels.ringmv import (RingMV, block_diag_mv, ring_mv,
 
 __all__ = ["AssembledWavePC", "cell_ring", "ring_tables",
            "distance2_coloring", "assemble_ring_blocks", "get_coloring",
-           "assemble_affine_operator", "batched_inv_small_T", "cell_to_T",
+           "assemble_affine_operator", "batched_inv_small",
+           "batched_inv_small_T", "cell_to_T",
            "PackedState", "ring_apply", "ring_apply_T", "ring_gmres",
            "aggregate_cells", "CoarseCorrection"]
 
@@ -180,6 +181,12 @@ def batched_inv_small_T(AT):
     view; the reference's pivotless Gauss-Jordan agrees to roundoff on
     these diagonally dominant blocks."""
     return torch.linalg.inv(AT.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+
+
+def batched_inv_small(A):
+    """Batch-leading small-matrix inverse ``(n, d, d) -> (n, d, d)``, the
+    reference's layout of :func:`batched_inv_small_T`."""
+    return torch.linalg.inv(A)
 
 
 def cell_to_T(blocks):
