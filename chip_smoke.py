@@ -19,7 +19,7 @@ PyTorch version:
   wind-entrainment column (f64, 4 h through ``iterate()``), whose
   mixed-layer depth must follow the empirical curve;
 * the Rhine ROFI example (``examples/rhineROFI/rhineROFI.py``) at its own
-  size (870 triangles x 12 layers, dt 7 s, 200 steps), its case built
+  size (870 triangles x 12 layers, dt 7 s, 100 steps), its case built
   through the port from a copy of its mesh generator: LeapFrogAM3, GLS,
   Smagorinsky, the tracer limiter, momentum ``symm`` and salinity
   ``value`` boundaries, the Kelvin-wave elevation set every step through
@@ -116,15 +116,15 @@ Phases, each printing its lines:
     as ``M_modesplit`` explicit SSPRK33 substeps, no ring kernel;
 14. Kato-Phillips, f64: 240 steps of 60 s through ``iterate()``; the
     mixed-layer depth within 10% of 1.05 u* sqrt(t / N0);
-15. Rhine ROFI, f32: 200 steps through ``iterate(update_forcings=...)``;
+15. Rhine ROFI, f32: 100 steps through ``iterate(update_forcings=...)``;
     ms/step, launches (4 tridiag a step), FGMRES cycles, the example's
     checks (salinity within [-0.01, 32.01], freshwater volume changed by
     less than 5%) and the monitors;
 16. the estuary, f32, 48x48x12: 1 warm-up + 20 steps through
     ``iterate(update_forcings=...)``; ms/step, DOF*steps/s, launches (5
     tridiag a step), salinity bounds, the monitors; from a fresh process
-    (``python3 chip_smoke.py profile3d_estuary``) the device kernels of
-    one step;
+    (``python3 chip_smoke.py profile3d_estuary``, started in phase 21's
+    block, as are 17's and 18's) the device kernels of one step;
 17. the couplings, f32, 48x48x12: 1 warm-up + 5 steps each; ms/step and
     launches; from a fresh process (``python3 chip_smoke.py
     profile3d_more``) the device kernels of one step of each and of one
@@ -312,6 +312,25 @@ Phases, each printing its lines:
     kernel must launch on the partitioned runs (``launches_by_path``
     gains ``parallel``, their sum); the phase prints its seconds in a
     ``[phase_parallel]`` line.
+
+32. the reference's convergence ladders on the card, f64 (``python3
+    chip_smoke.py convergence`` runs it alone; in the whole script each
+    part runs in a process of its own, ``python3 chip_smoke.py
+    convergence_case <basic|coriolis|viscosity|waves>``, among phase 21's
+    block): the three steady SWE
+    manufactured solutions of ``tests/test_swe_mms.py`` (basic, Coriolis,
+    viscosity; nx 8 / 16 / 32, 240 semi-implicit BackwardEuler steps
+    each, the assembled solve on the ring matvec and block-Jacobi
+    kernels), the 3D barotropic standing wave of
+    ``tests/test_barotropic_mes3d.py`` (refinements 1 / 2 / 4, its
+    mode-split CN on the same kernels) and the degree-2 standing wave of
+    ``tests/test_swe_p2.py`` (8 / 16 / 32, SSPRK33), each line its errors,
+    its slope and the reference test's bound, which it must clear; the
+    ladders' launches (ring_mv and block_diag_mv, no tridiag: the ladders
+    keep the vertical diffusion explicit) go under
+    ``launches_by_path.convergence``; then the coarsest rung of the MMS
+    ``basic`` case and of the barotropic ladder with the wrappers routed
+    to their plain versions, every field to 1e-9 of the kernels' run.
 
 Then one JSON line describing each kernel (top-level numbers f32 at the
 3D step's shape, ``shapes`` every shape and dtype of phases 3 and 31c),
@@ -1479,10 +1498,11 @@ def phase_slice3d(smi):
 
 def run_profile(mode, tag):
     """The profiler's captures of ``mode`` (``profile3d``,
-    ``profile3d_gls``, ``profile3d_estuary``, ``profile3d_more``) in a
-    process of their own: late in this long one the profiler loses kernel
-    records.  Its lines starting with ``tag`` (a prefix or a tuple of
-    them) are passed on; a failure there fails here."""
+    ``profile3d_gls``) in a process of their own: late in this long one
+    the profiler loses kernel records.  Its lines starting with ``tag``
+    are passed on; a failure there fails here.  (Their captures of one
+    call and of a few kernels come back empty under the load of phase
+    21's block, so they run here, unlike :data:`STEP_PROFILES`.)"""
     sub = subprocess.run(
         [sys.executable, os.path.abspath(__file__), mode],
         capture_output=True, text=True, timeout=300)
@@ -1492,6 +1512,11 @@ def run_profile(mode, tag):
     if sub.returncode != 0:
         raise RuntimeError(f"the profiler captures of {mode} failed:\n"
                            + sub.stderr[-4000:])
+
+
+#: the profiler's captures of whole steps of phases 16-18, each a process
+#: of its own, started in phase 21's block with the other profiles
+STEP_PROFILES = ("profile3d_estuary", "profile3d_more", "profile2d_tracers")
 
 
 def profile3d():
@@ -1820,7 +1845,7 @@ def phase_katophillips(smi):
 
 
 # -- this slice's paths: ROFI, the estuary, the couplings ----------------
-ROFI_STEPS = 200
+ROFI_STEPS = 100
 EST_STEPS = STEPS3                       # 1 warm-up + 20 timed
 COUPLING_STEPS = 5
 #: the 3D workload (bench.py) under each option of the couplings phase
@@ -1888,7 +1913,7 @@ def check_launches(tag, n, steps, per_step):
 
 def phase_model3d_rofi(smi):
     """The Rhine ROFI example at its own size (870 triangles, 12 layers,
-    dt 7 s), 200 steps through ``iterate(update_forcings=...)`` as its
+    dt 7 s), 100 steps through ``iterate(update_forcings=...)`` as its
     script runs it, in f32 and in f64, with the example's checks:
     salinity within [-0.01, 32.01], and the freshwater volume changed by
     less than 5% (in f64: in f32 the ocean's salinity, 32 to 6e-8, drifts
@@ -1971,7 +1996,6 @@ def phase_model3d_estuary(smi):
         f"{float(state['uv_3d'].abs().max()):.4e} m/s, nu_v "
         f"{field_range(state['nu_v_3d'])}; every state field finite; "
         f"monitors: {monitor_text(s)}; card: {smi}")
-    run_profile("profile3d_estuary", "[model3d estuary profile]")
     return n, ms
 
 
@@ -1996,8 +2020,6 @@ def phase_model3d_couplings(smi):
             f"{t / COUPLING_STEPS * 1e3:.2f} ms/step; "
             f"{launches_text(n, COUPLING_STEPS)}; state keys "
             f"{len(out)}, every field finite; card: {smi}")
-    run_profile("profile3d_more", ("[model3d rofi profile]",
-                                   "[model3d couplings profile]"))
     return total
 
 
@@ -2357,7 +2379,6 @@ def phase_slice2d_tracers(smi):
         f"tracer_2d {mass['tracer_2d']:.3e} (source {TRACER_SOURCE:g}/s), "
         f"salt_2d {mass['salt_2d']:.3e}; monitors over the 10 timed steps: "
         f"{callbacks_text(monitors)}; card: {smi}")
-    run_profile("profile2d_tracers", "[slice2d tracers profile]")
     return n
 
 
@@ -2739,27 +2760,36 @@ def phase_cases(smi, scripts, then=()):
     and PPP on the standing wave (``tests/test_standing_wave.py``, 20
     steps), each launch-bound and in a process of its own, all at once,
     with the tidal-array and solitary-wave examples, the dg-cg standing
-    waves (25a), the H(div) and Williamson cases (26a, 27a), and the
-    profiles of phases 22-24 (``profile_slice9``), 25-27
+    waves (25a), the H(div) and Williamson cases (26a, 27a), phase 32's
+    convergence ladders (``convergence_case``, a process a part), and the
+    profiles of phases 16-18 (:data:`STEP_PROFILES`), 22-24
+    (``profile_slice9``), 25-27
     (``profile_families``) and 29 (``profile_io``); phase 30's
     ``scripts`` (:func:`example_modes`), :data:`EXAMPLES_AT_ONCE` at a
     time, once the profiles have ended (their device times are read
     without the scripts beside them); meanwhile, in this process on 4
     CPU threads, the GPU-against-CPU parity of phase 7 (3D), phase 11
     (2D, with the configurations of phases 18-27), SteadyState and
-    SSPIMEX, then the phases ``then`` (each called with ``smi``).
-    Returns phase 30's launches and each in-process phase's seconds."""
+    SSPIMEX, then the phases ``then`` (each called with ``smi``).  Every
+    process of the block runs on one host thread: its work is the card's,
+    and the thread pools of some twenty processes spin on eight cores.
+    Returns phase 30's launches, each in-process phase's seconds and
+    phase 32's launches."""
     t30 = time.perf_counter()
     threads = torch.get_num_threads()
     seconds, handles = {}, []
     try:
-        handles.append(start_cases([["profile_slice9"], ["profile_families"],
-                                    ["profile_io"]]))
+        handles.append(start_cases(
+            [[m] for m in STEP_PROFILES] + [["profile_slice9"]]
+            + [["profile_families", g] for g in FAMILY_PROFILES]
+            + [["profile_io"]], one_thread=True))
         handles.append(start_cases(
             [["thacker", k] for k in THACKER_BOUNDS]
             + [["standing_wave"], ["tidal_array"], ["solitary_wave"]]
             + [["dgcg_wave", k] for k in DGCG_WAVES]
-            + [["dgcg_volume"], ["hdiv_cases"]]))
+            + [["dgcg_volume"], ["hdiv_cases"]]
+            + [["convergence_case", p] for p in CONVERGENCE_PARTS],
+            one_thread=True))
         handles.append(start_cases(example_modes(scripts), EXAMPLES_AT_ONCE,
                                    after=handles[0], one_thread=True))
         torch.set_num_threads(min(threads, 4))
@@ -2779,8 +2809,8 @@ def phase_cases(smi, scripts, then=()):
     finally:
         torch.set_num_threads(threads)
         lines = finish_cases(*handles, timeout=900)
-    return examples_launches(lines, scripts, smi,
-                             time.perf_counter() - t30), seconds
+    return (examples_launches(lines, scripts, smi, time.perf_counter() - t30),
+            seconds, convergence_launches(lines))
 
 
 def phase_small_steppers():
@@ -3948,12 +3978,18 @@ def phase_model_parity_families():
             f"{FAMILY_PARITY_RTOL:g}: ok (the step moved {moved})")
 
 
-def profile_families():
+#: the groups of :func:`profile_families`, each a process of its own in
+#: phase 21's block (one process for all was that block's longest)
+FAMILY_PROFILES = ("25b", "26b", "27b")
+
+
+def profile_families(group=None):
     """The profiler's view of one step (the coupled advance) of each
     full-width case of phases 25-27 after a warm-up step, from a fresh
-    process (``python3 chip_smoke.py profile_families``, started in phase
-    21's block): device kernels and device ms a step, the step's Newton
-    iterations and FGMRES cycles."""
+    process (``python3 chip_smoke.py profile_families [25b|26b|27b]``,
+    one process a group started in phase 21's block; no group: all):
+    device kernels and device ms a step, the step's Newton iterations and
+    FGMRES cycles."""
     phase_device()
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -3968,6 +4004,8 @@ def profile_families():
             dev, f32, W2_REFINEMENT, fam, params=F32_PARAMS)[0])
            for fam in ("rt-dg", "bdm-dg")},
     }
+    if group is not None:
+        cases = {k: v for k, v in cases.items() if k.startswith(group)}
     device_rows(lambda: torch.ones(8, device=dev) + 1)  # profiler warm-up
     for name, make in cases.items():
         s = make()
@@ -6010,6 +6048,400 @@ def phase_parallel(smi):
     return n_par, shapes
 
 
+# -- phase 32: the reference's convergence ladders -------------------------
+#: tests/test_swe_mms.py: the basin, the bed's and the coefficients' scales,
+#: the pseudo-time march and the ladder
+MMS_L, MMS_H0, MMS_F0, MMS_NU0 = 1.0e4, 10.0, 1.0e-3, 50.0
+MMS_CASES = ("basic", "coriolis", "viscosity")
+MMS_STEPS = 240
+MMS_LADDER = (8, 16, 32)
+MMS_MIN_SLOPE = 2.0 * (1 - 0.25)            # test_swe_mms.py:157-158
+#: tests/test_barotropic_mes3d.py: the refinements, the elevation's slope
+#: and the final velocity's bound (a share of A sqrt(g/H))
+BAROTROPIC_LADDER = (1, 2, 4)
+BAROTROPIC_MIN_SLOPE = 2.0 * (1 - 0.12)     # test_barotropic_mes3d.py:81
+BAROTROPIC_UV_SHARE = 0.35
+#: tests/test_swe_p2.py: the standing wave's ladder and least slope
+P2_LADDER = (8, 16, 32)
+P2_MIN_SLOPE = 2.5
+
+
+def swe_mms_manufactured(case):
+    """tests/test_swe_mms.py's manufactured steady solution and the
+    sources that cancel its residual, as numpy functions of (x, y) with
+    the keys of that test's ``_derive`` (which derives them with sympy;
+    these are its derivatives written out): the bed ``bath``, ``elev``,
+    ``u``, ``v``, ``coriolis`` and ``viscosity`` (None where the case
+    has none), ``src_u``, ``src_v`` and ``src_eta``."""
+    g = float(physical_constants["g_grav"])
+    a = math.pi / MMS_L
+    cor, visc = case == "coriolis", case == "viscosity"
+
+    def root(x, y):
+        return np.sqrt(0.3 * x ** 2 + 0.2 * y ** 2 + 0.1)
+
+    def bath(x, y):
+        return MMS_H0 * root(x, y) / MMS_L + 4.0
+
+    def elev(x, y):
+        return np.cos(a * (3.0 * x + y))
+
+    def u(x, y):
+        return np.sin(a * (-2.0 * x + y))
+
+    def v(x, y):
+        return 0.5 * np.sin(a * (-3.0 * x + y))
+
+    def coriolis(x, y):
+        return MMS_F0 * np.cos(a * (x + y))
+
+    def viscosity(x, y):
+        return MMS_NU0 * (1.0 + x / MMS_L)
+
+    def parts(x, y):
+        su, cu = np.sin(a * (-2.0 * x + y)), np.cos(a * (-2.0 * x + y))
+        sv, cv = np.sin(a * (-3.0 * x + y)), np.cos(a * (-3.0 * x + y))
+        se = np.sin(a * (3.0 * x + y))
+        uu, vv = su, 0.5 * sv
+        return SimpleNamespace(
+            u=uu, v=vv, u_x=-2.0 * a * cu, u_y=a * cu,
+            v_x=-1.5 * a * cv, v_y=0.5 * a * cv,
+            lap_u=-5.0 * a * a * uu, lap_v=-10.0 * a * a * vv,
+            e_x=-3.0 * a * se, e_y=-a * se)
+
+    def src_u(x, y):
+        p = parts(x, y)
+        s = p.u * p.u_x + p.v * p.u_y + g * p.e_x
+        if cor:
+            s = s - coriolis(x, y) * p.v
+        if visc:
+            s = s - (MMS_NU0 / MMS_L * p.u_x + viscosity(x, y) * p.lap_u)
+        return s
+
+    def src_v(x, y):
+        p = parts(x, y)
+        s = p.u * p.v_x + p.v * p.v_y + g * p.e_y
+        if cor:
+            s = s + coriolis(x, y) * p.u
+        if visc:
+            s = s - (MMS_NU0 / MMS_L * p.v_x + viscosity(x, y) * p.lap_v)
+        return s
+
+    def src_eta(x, y):
+        p = parts(x, y)
+        r = root(x, y)
+        h_x = MMS_H0 * 0.3 * x / (r * MMS_L)
+        h_y = MMS_H0 * 0.2 * y / (r * MMS_L)
+        depth = bath(x, y) + elev(x, y)
+        return ((h_x + p.e_x) * p.u + depth * p.u_x
+                + (h_y + p.e_y) * p.v + depth * p.v_y)
+
+    return {"bath": bath, "elev": elev, "u": u, "v": v,
+            "coriolis": coriolis if cor else None,
+            "viscosity": viscosity if visc else None,
+            "src_u": src_u, "src_v": src_v, "src_eta": src_eta}
+
+
+def swe_mms_error(nx, case, device, manufactured=None, dtype=torch.float64):
+    """``tests/test_swe_mms.py::_run_swe(nx, case)`` through the port:
+    240 semi-implicit BackwardEuler steps (the assembled solve: ring_mv
+    and block_diag_mv) from the manufactured state with its sources and
+    open elev + uv boundaries, on ``device``.  ``manufactured``: the dict
+    of :func:`swe_mms_manufactured` (the default) or the test's own.
+    Returns ``((elevation error, velocity error), solver)``."""
+    d = manufactured or swe_mms_manufactured(case)
+    mesh2d = RectangleMesh(nx, nx, MMS_L, MMS_L, device=device, dtype=dtype)
+    xv, yv = mesh2d.coords_np[:, 0], mesh2d.coords_np[:, 1]
+    xd = mesh2d.coords_np[mesh2d.cells_np]          # (nc, 3, 2) P1DG nodes
+    xs, ys = xd[..., 0], xd[..., 1]
+    p1 = FunctionSpace(mesh2d, "CG", 1)
+
+    def on_mesh(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64),
+                               device=mesh2d.device).to(mesh2d.dtype)
+
+    def p1_function(values, space=p1):
+        f = Function(space)
+        f.data = on_mesh(values)
+        return f
+
+    def cells(fn):
+        return np.broadcast_to(fn(xs, ys), xs.shape)
+
+    bath = p1_function(d["bath"](xv, yv))
+    so = FlowSolver2d(mesh2d, bath)
+    o = so.options
+    o.swe_timestepper_type = "BackwardEuler"
+    o.swe_timestepper_options.use_semi_implicit_linearization = True
+    c = math.sqrt(float(physical_constants["g_grav"])
+                  * (float(d["bath"](xv, yv).max()) + 1.0))
+    o.timestep = 0.5 * (MMS_L / nx) / c * 8.0
+    o.simulation_export_time = o.timestep * MMS_STEPS
+    o.simulation_end_time = o.timestep * MMS_STEPS - 1e-6
+    o.no_exports = True
+    o.use_lax_friedrichs_velocity = True
+    if d["coriolis"] is not None:
+        o.coriolis_frequency = p1_function(d["coriolis"](xv, yv))
+    if d["viscosity"] is not None:
+        o.horizontal_viscosity = p1_function(
+            np.broadcast_to(d["viscosity"](xv, yv), xv.shape))
+        o.use_grad_depth_viscosity_term = False
+    o.momentum_source_2d = on_mesh(np.stack(
+        [cells(d["src_u"]), cells(d["src_v"])], axis=-1))
+    o.volume_source_2d = on_mesh(cells(d["src_eta"]))
+    elev_b = p1_function(d["elev"](xv, yv))
+    uv_b = p1_function(np.stack(
+        [np.broadcast_to(d["u"](xv, yv), xv.shape),
+         np.broadcast_to(d["v"](xv, yv), xv.shape)], axis=-1),
+        FunctionSpace(mesh2d, "CG", 1, dim=2))
+    so.bnd_functions["shallow_water"] = {
+        m: {"elev": elev_b, "uv": uv_b} for m in (1, 2, 3, 4)}
+    eta_exact = on_mesh(cells(d["elev"]))
+    uv_exact = on_mesh(np.stack([cells(d["u"]), cells(d["v"])], axis=-1))
+    so.assign_initial_conditions(elev=eta_exact, uv=uv_exact)
+    so.iterate()
+    area = math.sqrt(MMS_L * MMS_L)
+    return ((float(so.asm.norm_l2(so.fields.elev_2d.data - eta_exact)) / area,
+             float(so.asm.norm_l2(so.fields.uv_2d.data - uv_exact)) / area),
+            so)
+
+
+def barotropic_mes_error(refinement, device, timestepper_type="SSPRK22",
+                         dtype=torch.float64):
+    """``tests/test_barotropic_mes3d.py::run(refinement)`` through the
+    port: the 3D barotropic standing wave (60 km x one strip of cells,
+    100 m deep, 2 x refinement layers) run for one cycle at a fixed
+    Courant number; its mode-split 2D CN is the assembled solve (ring_mv
+    and block_diag_mv).  Returns ``((elevation error, velocity norm),
+    solver)``, each an L2 norm over the square root of the area."""
+    g = float(physical_constants["g_grav"])
+    depth, lx, elev_amp = 100.0, 60000.0, 0.01
+    nx = 10 * refinement
+    ly = lx / nx
+    mesh2d = RectangleMesh(nx, 1, lx, ly, device=device, dtype=dtype)
+    bath = Function(FunctionSpace(mesh2d, "CG", 1)).assign(depth)
+    t_cycle = lx / math.sqrt(g * depth)
+    so = FlowSolver(mesh2d, bath, 2 * refinement)
+    o = so.options
+    o.timestep = t_cycle / (10 * refinement)
+    o.simulation_export_time = t_cycle
+    o.simulation_end_time = t_cycle - 1e-9
+    o.no_exports = True
+    o.timestepper_type = timestepper_type
+    o.use_baroclinic_formulation = False
+    o.solve_salinity = False
+    o.solve_temperature = False
+    o.use_implicit_vertical_diffusion = False
+    o.use_bottom_friction = False
+    elev0 = Function(FunctionSpace(mesh2d, "DG", 1)).interpolate(
+        lambda x, y: -elev_amp * torch.cos(2 * math.pi * x / lx))
+    so.assign_initial_conditions(elev=elev0)
+    so.iterate()
+    root = math.sqrt(lx * ly)
+    return ((float(so.asm.norm_l2(so.fields.elev_2d.data - elev0.data))
+             / root, float(so.asm.norm_l2(so.fields.uv_2d.data)) / root),
+            so)
+
+
+def p2_standing_wave_error(nx, degree, device, dtype=torch.float64):
+    """``tests/test_swe_p2.py::run(nx, degree)`` through the port: the
+    linear standing wave in a closed 5 km channel (one strip of cells,
+    100 m deep) over a tenth of its period, dg-dg of ``degree``, SSPRK33
+    at 8 nx steps.  Returns the elevation's L2 error over the square root
+    of the area."""
+    lx, depth, amp = 5e3, 100.0, 0.01
+    ly = lx / nx
+    mesh2d = RectangleMesh(nx, 1, lx, ly, device=device, dtype=dtype)
+    c = math.sqrt(float(physical_constants["g_grav"]) * depth)
+    t_end = 2 * lx / c / 10.0
+    nsteps = 8 * nx
+    dt = t_end / nsteps
+    s = FlowSolver2d(mesh2d, Function(FunctionSpace(mesh2d, "CG", 1))
+                     .assign(depth))
+    o = s.options
+    o.element_family = "dg-dg"
+    o.polynomial_degree = degree
+    o.use_nonlinear_equations = False
+    o.swe_timestepper_type = "SSPRK33"
+    o.swe_timestepper_options.use_automatic_timestep = False
+    o.timestep = dt
+    o.simulation_export_time = dt * nsteps
+    o.simulation_end_time = t_end - 0.1 * dt
+    o.no_exports = True
+    s.create_function_spaces()
+    h_2d = s.function_spaces.H_2d
+    k = math.pi / lx
+    s.assign_initial_conditions(elev=Function(h_2d).interpolate(
+        lambda x, y: amp * torch.cos(k * x)))
+    s.iterate()
+    exact = Function(h_2d).interpolate(
+        lambda x, y: amp * torch.cos(k * x) * math.cos(c * k * t_end))
+    return float(s.asm.norm_l2(s.fields.elev_2d.data - exact.data)) \
+        / math.sqrt(lx * ly)
+
+
+def fitted_slope(h, errors):
+    """The least-squares slope of log(error) against log(h) (scipy's
+    ``linregress`` slope, as the reference tests fit it)."""
+    return float(np.polyfit(np.log(np.asarray(h, dtype=float)),
+                            np.log(np.asarray(errors, dtype=float)), 1)[0])
+
+
+def ladder_line(tag, rungs, errors, slope, bound, extra=""):
+    log(f"[32 convergence] {tag}: " + ", ".join(
+        f"{r}: {e:.6e}" for r, e in zip(rungs, errors))
+        + f"; slope {slope:.4f} > {bound:.4f}{extra}")
+
+
+#: phase 32's parts, each a process of its own in phase 21's block: each
+#: SWE MMS case, and the 3D barotropic and P2 ladders ("waves")
+CONVERGENCE_PARTS = MMS_CASES + ("waves",)
+
+
+def mms_ladder(case, dev):
+    """One SWE MMS case's ladder on ``dev``: its lines and its slopes'
+    check; returns the coarsest rung's solver."""
+    t0 = time.perf_counter()
+    runs = [swe_mms_error(nx, case, dev) for nx in MMS_LADDER]
+    for i, field in enumerate(("elev", "uv")):
+        errors = [r[0][i] for r in runs]
+        slope = fitted_slope([MMS_L / nx for nx in MMS_LADDER], errors)
+        ladder_line(f"SWE MMS {case} {field} (nx)", MMS_LADDER, errors,
+                    slope, MMS_MIN_SLOPE,
+                    f"; {time.perf_counter() - t0:.1f} s, last solve "
+                    f"{runs[-1][1].timestepper.stats}" if i else "")
+        if not slope > MMS_MIN_SLOPE:
+            raise AssertionError(f"32 SWE MMS {case}/{field}: slope "
+                                 f"{slope} <= {MMS_MIN_SLOPE}")
+    return runs[0][1]
+
+
+def barotropic_ladder(dev):
+    """The 3D barotropic standing wave's ladder on ``dev``: its line and
+    its checks; returns the coarsest rung's solver."""
+    t0 = time.perf_counter()
+    runs = [barotropic_mes_error(r, dev) for r in BAROTROPIC_LADDER]
+    errors = [r[0][0] for r in runs]
+    slope = fitted_slope([1.0 / r for r in BAROTROPIC_LADDER], errors)
+    uv_bound = BAROTROPIC_UV_SHARE * 0.01 * math.sqrt(9.81 / 100.0)
+    uv_last = runs[-1][0][1]
+    ladder_line("3D barotropic standing wave SSPRK22 elev (refinement)",
+                BAROTROPIC_LADDER, errors, slope, BAROTROPIC_MIN_SLOPE,
+                f"; final uv {uv_last:.6e} < {uv_bound:.6e}; "
+                f"{time.perf_counter() - t0:.1f} s")
+    if not (slope > BAROTROPIC_MIN_SLOPE and uv_last < uv_bound):
+        raise AssertionError(f"32 barotropic: slope {slope}, final uv "
+                             f"{uv_last}")
+    return runs[0][1]
+
+
+def p2_ladder(dev):
+    """The P2 standing wave's ladder on ``dev``: its line and its check."""
+    t0 = time.perf_counter()
+    errors = [p2_standing_wave_error(nx, 2, dev) for nx in P2_LADDER]
+    slopes = [math.log2(errors[i] / errors[i + 1])
+              for i in range(len(errors) - 1)]
+    ladder_line("P2 standing wave elev (nx)", P2_LADDER, errors,
+                min(slopes), P2_MIN_SLOPE,
+                f" (the least of the successive slopes "
+                f"{', '.join(f'{s:.4f}' for s in slopes)}); "
+                f"{time.perf_counter() - t0:.1f} s")
+    if not min(slopes) > P2_MIN_SLOPE:
+        raise AssertionError(f"32 P2: slopes {slopes}")
+
+
+def kernels_against_plain(tag, kernels, plain, keys):
+    """The kernels' solver against the plain path's: each of its ``keys``
+    fields to PARITY_RTOL of its largest value."""
+    rel = max(max_rel(kernels.fields[k].data, plain.fields[k].data)
+              for k in keys)
+    log(f"[32 convergence] {tag}, f64: kernels against plain {rel:.3e} of "
+        f"each field's largest value (bound {PARITY_RTOL:g})")
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(f"32 {tag}: kernels against plain {rel}")
+
+
+def phase_convergence(smi, dev=torch.device("cuda"), parts=CONVERGENCE_PARTS):
+    """Phase 32: the reference's convergence ladders through the port on
+    ``dev``, f64, each held to the reference test's own bound: the three
+    steady SWE manufactured solutions (``tests/test_swe_mms.py``: 8 / 16 /
+    32, 240 BackwardEuler steps each, the assembled solve), the 3D
+    barotropic standing wave (``tests/test_barotropic_mes3d.py``:
+    refinements 1 / 2 / 4, its mode-split CN the assembled solve) and the
+    degree-2 standing wave (``tests/test_swe_p2.py``: 8 / 16 / 32,
+    SSPRK33); ``parts`` of :data:`CONVERGENCE_PARTS`.  The counts are set
+    to 0 just before the ladders and read just after; ring_mv and
+    block_diag_mv must have launched, the tridiagonal kernel not (these
+    ladders keep the vertical diffusion explicit).  Then the coarsest
+    rung of the MMS ``basic`` case and of the barotropic ladder again
+    with the wrappers routed to their plain versions: every field to
+    PARITY_RTOL of the kernels' run.  Returns the ladders' launches."""
+    t_all = time.perf_counter()
+    first = {}
+    reset_counts()
+    for part in parts:
+        if part == "waves":
+            first[part] = barotropic_ladder(dev)
+            p2_ladder(dev)
+        else:
+            first[part] = mms_ladder(part, dev)
+    torch.cuda.synchronize()
+    n = counts()
+    log(f"[32 convergence] launches of the ladders ({', '.join(parts)}): "
+        f"{n}")
+    if not (n["ring_mv"] > 0 and n["block_diag_mv"] > 0
+            and n["tridiag"] == 0):
+        raise AssertionError(f"phase 32: the ladders launched {n}")
+    # the kernels' coarsest rungs against the plain path on the card
+    with plain_kernels():
+        if "basic" in first:
+            kernels_against_plain(
+                f"SWE MMS basic nx {MMS_LADDER[0]}", first["basic"],
+                swe_mms_error(MMS_LADDER[0], "basic", dev)[1],
+                ("elev_2d", "uv_2d"))
+        if "waves" in first:
+            kernels_against_plain(
+                f"barotropic refinement {BAROTROPIC_LADDER[0]}",
+                first["waves"],
+                barotropic_mes_error(BAROTROPIC_LADDER[0], dev)[1],
+                ("elev_2d", "uv_2d", "uv_3d"))
+    log(f"[phase_convergence] {', '.join(parts)}: "
+        f"{time.perf_counter() - t_all:.1f} s; card: {smi}")
+    return n
+
+
+def convergence_case(part):
+    """One part of phase 32 in a process of its own (``python3
+    chip_smoke.py convergence_case <part>``, started in phase 21's
+    block): its lines, then one ``[32 result]`` line with its launches."""
+    phase_device()
+    n = phase_convergence(card(), parts=(part,))
+    log("[32 result] " + json.dumps({"part": part, "launches": n}))
+
+
+def convergence_launches(lines):
+    """Phase 32's launches from its processes' ``lines``: every part gave
+    one result; their sum."""
+    results = [json.loads(line[len("[32 result] "):]) for line in lines
+               if line.startswith("[32 result] ")]
+    if sorted(r["part"] for r in results) != sorted(CONVERGENCE_PARTS):
+        raise RuntimeError("phase 32: a part gave no result")
+    return {k: sum(r["launches"][k] for r in results) for k in KERNELS}
+
+
+def convergence_only():
+    """Phase 32 alone (``python3 chip_smoke.py convergence``): the
+    device, the build and the ladders; ends with the same last line."""
+    name = phase_device()
+    smi = card()
+    phase_build()
+    phase_convergence(smi)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def parallel_only():
     """Phase 31 alone (``python3 chip_smoke.py parallel``): the device,
     the build and phase 31; ends with the same last line."""
@@ -6200,7 +6632,7 @@ def main():
     function_api_checks()
     scripts = [p for p in example_scripts() if p not in EXAMPLES_RUN_EARLIER]
     t0 = time.perf_counter()
-    new["examples"], secs = phase_cases(
+    new["examples"], secs, new["convergence"] = phase_cases(
         smi, scripts, then=(phase_adjoint_checks, phase_io_checks))
     t29 += secs["phase_io_checks"]
     log(f"[phase_cases] with phase 30, {time.perf_counter() - t0:.1f} s")
@@ -6237,7 +6669,8 @@ def main():
                                     "adjoint": new["adjoint"][k],
                                     "io": new["io"][k],
                                     "examples": new["examples"][k],
-                                    "parallel": n_par[k]},
+                                    "parallel": n_par[k],
+                                    "convergence": new["convergence"][k]},
                "library": main_shape["library"]}
         row.update({f: main_shape[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6285,6 +6718,9 @@ if __name__ == "__main__":
         hdiv_cases()
     elif sys.argv[1:] == ["profile_families"]:
         profile_families()
+    elif (sys.argv[1:2] == ["profile_families"] and len(sys.argv) == 3
+          and sys.argv[2] in FAMILY_PROFILES):
+        profile_families(sys.argv[2])
     elif sys.argv[1:] == ["channel_inversion"]:
         channel_inversion_case()
     elif sys.argv[1:] == ["adjoint"]:
@@ -6299,6 +6735,11 @@ if __name__ == "__main__":
         examples_only()
     elif sys.argv[1:] == ["parallel"]:
         parallel_only()
+    elif sys.argv[1:] == ["convergence"]:
+        convergence_only()
+    elif (sys.argv[1:2] == ["convergence_case"] and len(sys.argv) == 3
+          and sys.argv[2] in CONVERGENCE_PARTS):
+        convergence_case(sys.argv[2])
     elif sys.argv[1:] == ["profile_io"]:
         profile_io()
     else:

@@ -166,6 +166,23 @@ def test_equation_of_state(kind):
           je.eval(jnp.asarray(s), jnp.asarray(th), 0.0))
 
 
+@pytest.mark.parametrize("kind", ["jackett", "linear"])
+def test_equation_of_state_takes_numbers(kind):
+    """Numbers and numpy arrays in, as the reference takes them
+    (``tests/test_3d.py::test_eos_values``): the Jackett EOS clipped its
+    salinity with ``torch.clamp_min``, which refuses a number."""
+    je, te = {"jackett": (jeos.JackettEquationOfState(),
+                          teos.JackettEquationOfState()),
+              "linear": (jeos.LinearEquationOfState(),
+                         teos.LinearEquationOfState())}[kind]
+    for args in ((35.0, 25.0, 2000.0), (-1.0, 10.0, 0.0),
+                 (np.array([35.0, 30.0]), np.array([25.0, 4.0]), 100.0)):
+        got = te.compute_rho(*args, 1000.0)
+        want = je.compute_rho(*args, 1000.0)
+        assert not isinstance(got, torch.Tensor) or got.dtype == torch.float64
+        close(got, want)
+
+
 # -- diagnostics ---------------------------------------------------------
 def test_expand_and_extract(case):
     u2 = case.rand(case.nc, 3, 2)

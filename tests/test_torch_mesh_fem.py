@@ -121,6 +121,21 @@ def test_mesh_dtype_is_explicit():
     assert asm.wdetJ.dtype == torch.float32
 
 
+@pytest.mark.parametrize("args", [
+    (2, 2, 5e3, 5e3), (3, 2, 5e3, 5e3, "both"), (4, 4, 1.0, 1.0, "y")],
+    ids=["nx2", "both_ny2", "direction_y"])
+def test_periodic_mesh_refuses_as_the_reference(args):
+    """A periodic rectangle the facet tables cannot hold is refused with
+    the reference's AssertionError and message, which
+    ``tests/test_periodic.py::test_periodic_swe_uniform_forcing`` holds
+    (the port raised a ValueError)."""
+    with pytest.raises(AssertionError) as ref:
+        jgen.PeriodicRectangleMesh(*args)
+    with pytest.raises(AssertionError) as port:
+        tgen.PeriodicRectangleMesh(*args, device="cpu", dtype=F64)
+    assert str(port.value) == str(ref.value)
+
+
 @pytest.mark.parametrize("kind", sorted(MESHES))
 @pytest.mark.parametrize("name", ["phi", "dphi", "qw", "qwf", "phi_f",
                                   "dphi_f", "qt"])

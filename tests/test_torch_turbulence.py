@@ -171,6 +171,21 @@ def test_derived_options(closure, family):
                                rtol=1e-14)
 
 
+@pytest.mark.parametrize("closure", CLOSURES)
+def test_psi_from_k_eps_takes_numbers(closure):
+    """A number for the dissipation (or for both), as the reference takes
+    it (``tests/test_turbulence.py::test_gls_column_spinup`` seeds psi so):
+    the port clipped it with ``torch.clamp_min``, which refuses a number."""
+    j, t = models(closure)
+    k = log_uniform(np.random.default_rng(3), -6, -3)
+    for kk, eps in ((k, 1e-9), (1e-4, 2.5e-8), (k, 0.0)):
+        want = j.psi_from_k_eps(jnp.asarray(kk), eps)
+        got = t.psi_from_k_eps(torch.as_tensor(kk) if np.ndim(kk) else kk,
+                               eps)
+        assert got.dtype == F64
+        close(got, want, 1e-13)
+
+
 def closure_inputs(j, seed):
     """(k, psi, m2, n2, nu, mu, Dn) for the closure's functions: psi from
     a random dissipation, some k and psi below their floors.  The

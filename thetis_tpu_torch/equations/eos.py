@@ -13,6 +13,19 @@ import torch
 __all__ = ["JackettEquationOfState", "LinearEquationOfState"]
 
 
+def as_tensor_like(x, *others):
+    """``x`` as a tensor: as it is, else in the dtype and on the device
+    of the first tensor among ``others``, else in float64 (the
+    reference's pointwise closures take numbers and arrays as well as its
+    own arrays)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    ref = next((o for o in others if isinstance(o, torch.Tensor)), None)
+    if ref is None:
+        return torch.as_tensor(x, dtype=torch.float64)
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+
+
 class JackettEquationOfState:
     """Jackett et al. (2006) 25-coefficient rational EOS (coefficients
     from the paper's Table A2)."""
@@ -38,7 +51,11 @@ class JackettEquationOfState:
         :arg p: pressure (dbar), :arg rho0: reference value subtracted
         """
         a, b = self.a, self.b
-        s_pos = torch.clamp_min(s, 0.0)  # negative salinity is clipped
+        # arrays as tensors; numbers stay numbers (the density solver
+        # passes a scalar pressure), but the clipped salinity
+        th, p = (as_tensor_like(v, s, th, p) if hasattr(v, "__array__")
+                 else v for v in (th, p))
+        s_pos = torch.clamp_min(as_tensor_like(s, th, p), 0.0)  # s < 0 clipped
         pn = (
             a[0] + th * a[1] + th * th * a[2] + th * th * th * a[3]
             + s_pos * a[4] + th * s_pos * a[5] + s_pos * s_pos * a[6]

@@ -28,6 +28,7 @@ import torch
 
 from ..kernels.tridiag import tridiag_solve
 from ..utils.log import print_output
+from .eos import as_tensor_like
 from .stability_functions import STABILITY_FUNCTIONS
 
 __all__ = ["vdiff_implicit", "GLSModelOptions", "GenericLengthScaleModel",
@@ -145,6 +146,7 @@ class GenericLengthScaleModel:
 
     def length_from_k_eps(self, k, eps):
         o = self.options
+        k, eps = as_tensor_like(k, eps), as_tensor_like(eps, k)
         return torch.clamp_min(
             o.cmu0**3 * k**1.5 / torch.clamp_min(eps, o.eps_min), o.len_min)
 

@@ -77,15 +77,18 @@ def PeriodicRectangleMesh(nx, ny, lx, ly, direction="x",
     the last column of vertices wraps to the first, so seam facets are
     ordinary interior facets; geometry uses seam-aware coordinate
     differences.  Boundary markers (x-periodic): 1 = y=0, 2 = y=ly."""
+    # each refusal is the reference's AssertionError (its ``assert``s;
+    # raised here so that ``python -O`` keeps them)
     if direction not in ("x", "both"):
-        raise ValueError("periodicity directions implemented: 'x', 'both'")
+        raise AssertionError("periodicity directions implemented: 'x', "
+                             "'both'")
     # with nx < 3 two geometrically distinct edges share the same vertex
     # pair and the facet-by-vertex-pair representation degenerates
     if nx < 3:
-        raise ValueError("x-periodic meshes need nx >= 3")
+        raise AssertionError("x-periodic meshes need nx >= 3")
     both = direction == "both"
     if both and ny < 3:
-        raise ValueError("y-periodic meshes need ny >= 3")
+        raise AssertionError("y-periodic meshes need ny >= 3")
     x = np.arange(nx) * (lx / nx)
     nyv = ny if both else ny + 1
     y = (np.arange(ny) * (ly / ny) if both
