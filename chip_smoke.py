@@ -19,7 +19,7 @@ PyTorch version:
   wind-entrainment column (f64, 4 h through ``iterate()``), whose
   mixed-layer depth must follow the empirical curve;
 * the Rhine ROFI example (``examples/rhineROFI/rhineROFI.py``) at its own
-  size (870 triangles x 12 layers, dt 7 s, 100 steps), its case built
+  size (870 triangles x 12 layers, dt 7 s, 25 steps), its case built
   through the port from a copy of its mesh generator: LeapFrogAM3, GLS,
   Smagorinsky, the tracer limiter, momentum ``symm`` and salinity
   ``value`` boundaries, the Kelvin-wave elevation set every step through
@@ -116,7 +116,7 @@ Phases, each printing its lines:
     as ``M_modesplit`` explicit SSPRK33 substeps, no ring kernel;
 14. Kato-Phillips, f64: 240 steps of 60 s through ``iterate()``; the
     mixed-layer depth within 10% of 1.05 u* sqrt(t / N0);
-15. Rhine ROFI, f32: 100 steps through ``iterate(update_forcings=...)``;
+15. Rhine ROFI, f32: 25 steps through ``iterate(update_forcings=...)``;
     ms/step, launches (4 tridiag a step), FGMRES cycles, the example's
     checks (salinity within [-0.01, 32.01], freshwater volume changed by
     less than 5%) and the monitors;
@@ -137,7 +137,7 @@ Phases, each printing its lines:
     hmin/c (coarse correction, Schur fieldsplit) and the Newton CN, 1
     warm-up + 3 timed steps each; setup seconds, Newton iterations,
     FGMRES cycles, launches, ms/step, peak memory, final residuals;
-11. 2D model parity, f64, 80x40: one step of each configuration of
+11. 2D model parity, f64, 40x20: one step of each configuration of
     phases 8-10 and 18-20 on the GPU against the CPU plain path (run in
     phase 21's block);
 18. the 2D slice, f32, 320x160, through ``iterate()``: DIRK22
@@ -150,7 +150,7 @@ Phases, each printing its lines:
 19. wetting-and-drying: the Thacker bowl on SquareMesh(226, 226)
     (102,152 cells), f32, CN, 1 + 5 steps: ms/step, Newton iterations,
     FGMRES cycles, the volume change (and f64's over the same steps);
-20. DIRK33 and PressureProjectionPicard at 320x160, f32, 1 + 3 steps
+20. DIRK33 and PressureProjectionPicard at 320x160, f32, 1 + 1 steps
     each;
 21. the f64 checks that time nothing, after every timed phase: the
     Thacker case of ``tests/test_thacker.py`` (n = 10, dt 600 s, 72
@@ -158,7 +158,7 @@ Phases, each printing its lines:
     on the standing wave (100x1, 20 steps, relative error <= 5e-3), each
     in a process of its own (``python3 chip_smoke.py thacker <stepper>``,
     ``python3 chip_smoke.py standing_wave``), all four at once; meanwhile
-    phases 7 and 11 (one 80x40 step of the slice, DIRK33, PPP and the
+    phases 7 and 11 (one 40x20 step of the slice, DIRK33, PPP and the
     bowl under CN among them; one step of the sediment channel with
     Exner, the tidal array and the solitary wave) and SteadyState (8x4)
     and SSPIMEX (5x4), each GPU against CPU; a fifth process takes the
@@ -313,21 +313,23 @@ Phases, each printing its lines:
     gains ``parallel``, their sum); the phase prints its seconds in a
     ``[phase_parallel]`` line.
 
-32. the reference's convergence ladders on the card, f64 (``python3
+32. the reference's convergence suites on the card, f64 (``python3
     chip_smoke.py convergence`` runs it alone; in the whole script each
     part runs in a process of its own, ``python3 chip_smoke.py
     convergence_case <basic|coriolis|viscosity|waves>``, among phase 21's
     block): the three steady SWE
     manufactured solutions of ``tests/test_swe_mms.py`` (basic, Coriolis,
-    viscosity; nx 8 / 16 / 32, 240 semi-implicit BackwardEuler steps
-    each, the assembled solve on the ring matvec and block-Jacobi
-    kernels), the 3D barotropic standing wave of
-    ``tests/test_barotropic_mes3d.py`` (refinements 1 / 2 / 4, its
-    mode-split CN on the same kernels) and the degree-2 standing wave of
-    ``tests/test_swe_p2.py`` (8 / 16 / 32, SSPRK33), each line its errors,
-    its slope and the reference test's bound, which it must clear; the
-    ladders' launches (ring_mv and block_diag_mv, no tridiag: the ladders
-    keep the vertical diffusion explicit) go under
+    viscosity) at their ladder's coarsest rung (nx 8, 240 semi-implicit
+    BackwardEuler steps, the assembled solve on the ring matvec and
+    block-Jacobi kernels), each error equal to the CPU's to 1e-9 (the
+    CPU tests hold the ladders' slopes); two ladders whole: the 3D
+    barotropic standing wave of ``tests/test_barotropic_mes3d.py``
+    (refinements 1 / 2 / 4, its mode-split CN on the same kernels) and
+    the degree-2 standing wave of ``tests/test_swe_p2.py`` (8 / 16 / 32,
+    SSPRK33), each line its errors, its slope and the reference test's
+    bound, which it must clear; the runs' launches (ring_mv and
+    block_diag_mv, no tridiag: they keep the vertical diffusion explicit)
+    go under
     ``launches_by_path.convergence``; then the coarsest rung of the MMS
     ``basic`` case and of the barotropic ladder with the wrappers routed
     to their plain versions, every field to 1e-9 of the kernels' run.
@@ -417,7 +419,7 @@ GLS_OPTIONS = dict(use_turbulence=True, check_volume_conservation_3d=True,
 VOLUME_RTOL_F32 = 1e-6
 # Kato-Phillips (tests/test_katophillips.py of the reference)
 KP_DEPTH, KP_LAYERS, KP_US, KP_N0 = 50.0, 20, 0.01, 0.01
-NX_PARITY, NY_PARITY = 80, 40           # phase 11's CPU-affordable mesh
+NX_PARITY, NY_PARITY = 40, 20           # the f64 checks' CPU-side mesh
 #: FlowSolver2d configurations: (stepper, semi-implicit, dt in hmin/c,
 #: NewtonParameters keywords, the PC the CFL policy should pick).  The
 #: coarse / Schur cases take the policy's restart (24) at the bench's
@@ -452,6 +454,24 @@ SOURCES = {"ring_mv": ("thetis_tpu_torch/csrc/ring_mv.cu",
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the whole run's clock: its start (the script's import) and each phase's
+#: seconds, printed as one ``[clock]`` line before the ``kernels`` line
+T_START = time.perf_counter()
+CLOCK = {}
+
+
+def clocked(name, t0):
+    """Log ``[name] <seconds since t0> s`` and keep it for the clock."""
+    CLOCK[name] = time.perf_counter() - t0
+    log(f"[{name}] {CLOCK[name]:.1f} s")
+
+
+def clock_line():
+    """``[clock] total <s>`` and then each phase's seconds."""
+    return (f"[clock] total {time.perf_counter() - T_START:.1f} s; "
+            + "; ".join(f"{k} {v:.1f}" for k, v in CLOCK.items()))
 
 
 def card():
@@ -1417,8 +1437,11 @@ def compare(tag, a, b, rtol):
 
 
 def phase_parity2d():
-    cpu = workload(torch.device("cpu"), torch.float64)
-    gpu = workload(torch.device("cuda"), torch.float64)
+    """Phase 5: one f64 CN step of the 2D slice at NX_PARITY x NY_PARITY,
+    the GPU (kernels) against the CPU (plain path)."""
+    cpu = workload(torch.device("cpu"), torch.float64, NX_PARITY, NY_PARITY)
+    gpu = workload(torch.device("cuda"), torch.float64, NX_PARITY,
+                   NY_PARITY)
     sol_cpu, f_cpu = cpu[3], cpu[4]
     sol_gpu = {k: v.to("cuda") for k, v in sol_cpu.items()}
     reset_counts()
@@ -1430,7 +1453,8 @@ def phase_parity2d():
     b = cpu[2].advance(0.0, sol_cpu, f_cpu, f_cpu, {})
     t_cpu = time.perf_counter() - t0
     errs = compare("parity2d", a, b, PARITY_RTOL)
-    log(f"[parity2d] f64 {NX}x{NY} one CN step, GPU kernels {t_gpu:.2f} s "
+    log(f"[parity2d] f64 {NX_PARITY}x{NY_PARITY} one CN step, GPU kernels "
+        f"{t_gpu:.2f} s "
         f"vs CPU plain {t_cpu:.2f} s: max|diff|/max {errs} <= "
         f"{PARITY_RTOL:g}: ok")
 
@@ -1845,7 +1869,7 @@ def phase_katophillips(smi):
 
 
 # -- this slice's paths: ROFI, the estuary, the couplings ----------------
-ROFI_STEPS = 100
+ROFI_STEPS = 25
 EST_STEPS = STEPS3                       # 1 warm-up + 20 timed
 COUPLING_STEPS = 5
 #: the 3D workload (bench.py) under each option of the couplings phase
@@ -1913,7 +1937,7 @@ def check_launches(tag, n, steps, per_step):
 
 def phase_model3d_rofi(smi):
     """The Rhine ROFI example at its own size (870 triangles, 12 layers,
-    dt 7 s), 100 steps through ``iterate(update_forcings=...)`` as its
+    dt 7 s), 25 steps through ``iterate(update_forcings=...)`` as its
     script runs it, in f32 and in f64, with the example's checks:
     salinity within [-0.01, 32.01], and the freshwater volume changed by
     less than 5% (in f64: in f32 the ocean's salinity, 32 to 6e-8, drifts
@@ -2713,11 +2737,16 @@ def imex_step(device):
     return st.advance(0.0, sol, fields, fields, bnd), st
 
 
+#: phase 20's timed steps after the warm-up (PPP at 320x160 takes 3-6 s a
+#: step on the host; one shows the path's launches a step)
+STEPPER_STEPS = 1
+
+
 def phase_other_steppers(smi):
     """Phase 20: DIRK33 and PressureProjectionPicard at 320x160 (f32, 1 +
-    3 steps each); SteadyState (8x4) and SSPIMEX (5x4) at the CPU tests'
-    sizes, each GPU against CPU in f64.  (PPP on the standing wave runs in
-    :func:`phase_cases`.)"""
+    STEPPER_STEPS steps each); SteadyState (8x4) and SSPIMEX (5x4) at the
+    CPU tests' sizes, each GPU against CPU in f64.  (PPP on the standing
+    wave runs in :func:`phase_cases`.)"""
     dev = torch.device("cuda")
     total = {k: 0 for k in KERNELS}
     for stepper, params in (("DIRK33", SLICE2D_PARAMS),
@@ -2730,7 +2759,7 @@ def phase_other_steppers(smi):
         stats = []
 
         def run():
-            for _ in range(3):
+            for _ in range(STEPPER_STEPS):
                 iterate_steps(s, 1)
                 stats.append(dict(s.timestepper.stats))
 
@@ -2742,11 +2771,12 @@ def phase_other_steppers(smi):
         assembled = getattr(s.timestepper, "assembled_solve", False)
         if assembled and (n["ring_mv"] == 0 or n["block_diag_mv"] == 0):
             raise AssertionError(f"{stepper} launches {n}")
-        cycles = sum(x["ksp_cycles"] for x in stats) / 3
-        newton = sum(x["newton_iterations"] for x in stats) / 3
+        cycles = sum(x["ksp_cycles"] for x in stats) / STEPPER_STEPS
+        newton = sum(x["newton_iterations"] for x in stats) / STEPPER_STEPS
         log(f"[model2d {stepper}] f32 {NX}x{NY}, dt={s.dt:.3f} s: setup "
-            f"{t_setup:.2f} s, warm-up {t_warm * 1e3:.1f} ms; 3 steps "
-            f"{t / 3 * 1e3:.2f} ms/step; implicit solves/step "
+            f"{t_setup:.2f} s, warm-up {t_warm * 1e3:.1f} ms; "
+            f"{STEPPER_STEPS} steps {t / STEPPER_STEPS * 1e3:.2f} ms/step; "
+            f"implicit solves/step "
             f"{stats[-1]['stages']}, Newton iterations/step {newton:.2f}, "
             f"FGMRES cycles/step {cycles:.2f}, last final relative residual "
             f"{stats[-1]['ksp_rel_residual']:.2e}; launches {n} (assembled "
@@ -2838,7 +2868,7 @@ def phase_small_steppers():
 
 def phase_model_parity_slice():
     """Phase 11's f64 GPU-against-CPU parity for this slice's
-    configurations, one step each at 80x40: the slice (DIRK22 + tracers),
+    configurations, one step each at 40x20: the slice (DIRK22 + tracers),
     DIRK33, PressureProjectionPicard and the bowl under CN (with a Krylov
     budget that solves the step to roundoff)."""
     cases = {
@@ -2852,7 +2882,8 @@ def phase_model_parity_slice():
             stepper="PressureProjectionPicard", tracers=False,
             params=None)[0],
         "wetting-drying cn": lambda d: thacker_solver(
-            d, torch.float64, "CrankNicolson", NX_PARITY, 600.0 * 10 / 80,
+            d, torch.float64, "CrankNicolson", NX_PARITY,
+            600.0 * 10 / NX_PARITY,
             ny=NY_PARITY, params=WD_PARITY_PARAMS)[0],
     }
     for name, make in cases.items():
@@ -4230,8 +4261,8 @@ def phase_adjoint_checks(smi):
             f"rate in the initial elevation {rate:.4f} (> 1.9)")
         gs = {}
         for d in (dev, torch.device("cpu")):
-            sp, _ = model2d("cn", d, torch.float64, nx=NX_PARITY // 2,
-                            ny=NY_PARITY // 2)
+            sp, _ = model2d("cn", d, torch.float64, nx=NX_PARITY,
+                            ny=NY_PARITY)
             tight_cn(sp)
             gs[d.type] = adjoint_grad(adjoint_forward(sp, 2),
                                       adjoint_controls(sp))
@@ -4239,7 +4270,7 @@ def phase_adjoint_checks(smi):
                 for a, b in zip(gs["cuda"][1], gs["cpu"][1])]
         if max(errs) > ADJ_RTOL:
             raise AssertionError(f"28b: GPU against CPU {errs}")
-        log(f"[28b adjoint f64] {NX_PARITY // 2}x{NY_PARITY // 2}: GPU "
+        log(f"[28b adjoint f64] {NX_PARITY}x{NY_PARITY}: GPU "
             f"gradient against the CPU's max|diff|/max {max(errs):.2e} "
             f"(<= {ADJ_RTOL:g})")
         phase_adjoint_families()
@@ -6055,7 +6086,6 @@ MMS_L, MMS_H0, MMS_F0, MMS_NU0 = 1.0e4, 10.0, 1.0e-3, 50.0
 MMS_CASES = ("basic", "coriolis", "viscosity")
 MMS_STEPS = 240
 MMS_LADDER = (8, 16, 32)
-MMS_MIN_SLOPE = 2.0 * (1 - 0.25)            # test_swe_mms.py:157-158
 #: tests/test_barotropic_mes3d.py: the refinements, the elevation's slope
 #: and the final velocity's bound (a share of A sqrt(g/H))
 BAROTROPIC_LADDER = (1, 2, 4)
@@ -6294,26 +6324,35 @@ def ladder_line(tag, rungs, errors, slope, bound, extra=""):
 
 
 #: phase 32's parts, each a process of its own in phase 21's block: each
-#: SWE MMS case, and the 3D barotropic and P2 ladders ("waves")
+#: SWE MMS case at its coarsest rung, and the 3D barotropic and P2 ladders
+#: whole ("waves")
 CONVERGENCE_PARTS = MMS_CASES + ("waves",)
 
 
-def mms_ladder(case, dev):
-    """One SWE MMS case's ladder on ``dev``: its lines and its slopes'
-    check; returns the coarsest rung's solver."""
+#: the SWE MMS cases' coarsest-rung errors (elevation, velocity) on the
+#: CPU, f64: ``swe_mms_error(MMS_LADDER[0], case, "cpu")`` (the ladders
+#: and their slopes run on the CPU in ``tests/test_torch_convergence2d.py``)
+MMS_CPU_ERRORS = {"basic": (0.049056001087061304, 0.5171774691414676),
+                  "coriolis": (0.10747463405206877, 0.70036489218643),
+                  "viscosity": (0.03751959709462581, 0.12577717475474307)}
+
+
+def mms_rung(case, dev):
+    """One SWE MMS case at its ladder's coarsest rung on ``dev``: its line
+    and its errors against the CPU's (:data:`MMS_CPU_ERRORS`, to
+    PARITY_RTOL); returns the solver."""
     t0 = time.perf_counter()
-    runs = [swe_mms_error(nx, case, dev) for nx in MMS_LADDER]
-    for i, field in enumerate(("elev", "uv")):
-        errors = [r[0][i] for r in runs]
-        slope = fitted_slope([MMS_L / nx for nx in MMS_LADDER], errors)
-        ladder_line(f"SWE MMS {case} {field} (nx)", MMS_LADDER, errors,
-                    slope, MMS_MIN_SLOPE,
-                    f"; {time.perf_counter() - t0:.1f} s, last solve "
-                    f"{runs[-1][1].timestepper.stats}" if i else "")
-        if not slope > MMS_MIN_SLOPE:
-            raise AssertionError(f"32 SWE MMS {case}/{field}: slope "
-                                 f"{slope} <= {MMS_MIN_SLOPE}")
-    return runs[0][1]
+    nx = MMS_LADDER[0]
+    errors, so = swe_mms_error(nx, case, dev)
+    rel = max(abs(e - c) / c for e, c in zip(errors, MMS_CPU_ERRORS[case]))
+    log(f"[32 convergence] SWE MMS {case} nx {nx}: elev {errors[0]:.9e}, uv "
+        f"{errors[1]:.9e}; against the CPU's {rel:.3e} of each (bound "
+        f"{PARITY_RTOL:g}); {time.perf_counter() - t0:.1f} s, last solve "
+        f"{so.timestepper.stats}")
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(f"32 SWE MMS {case}: errors {errors} against "
+                             f"the CPU's {MMS_CPU_ERRORS[case]}")
+    return so
 
 
 def barotropic_ladder(dev):
@@ -6362,14 +6401,16 @@ def kernels_against_plain(tag, kernels, plain, keys):
 
 
 def phase_convergence(smi, dev=torch.device("cuda"), parts=CONVERGENCE_PARTS):
-    """Phase 32: the reference's convergence ladders through the port on
-    ``dev``, f64, each held to the reference test's own bound: the three
-    steady SWE manufactured solutions (``tests/test_swe_mms.py``: 8 / 16 /
-    32, 240 BackwardEuler steps each, the assembled solve), the 3D
-    barotropic standing wave (``tests/test_barotropic_mes3d.py``:
-    refinements 1 / 2 / 4, its mode-split CN the assembled solve) and the
-    degree-2 standing wave (``tests/test_swe_p2.py``: 8 / 16 / 32,
-    SSPRK33); ``parts`` of :data:`CONVERGENCE_PARTS`.  The counts are set
+    """Phase 32: the reference's convergence suites through the port on
+    ``dev``, f64: the three steady SWE manufactured solutions
+    (``tests/test_swe_mms.py``) at their ladder's coarsest rung (nx 8,
+    240 BackwardEuler steps, the assembled solve), each error equal to the
+    CPU's (the CPU tests hold the ladders' slopes), and two ladders whole,
+    each held to the reference test's own bound: the 3D barotropic
+    standing wave (``tests/test_barotropic_mes3d.py``: refinements 1 / 2
+    / 4, its mode-split CN the assembled solve) and the degree-2 standing
+    wave (``tests/test_swe_p2.py``: 8 / 16 / 32, SSPRK33); ``parts`` of
+    :data:`CONVERGENCE_PARTS`.  The counts are set
     to 0 just before the ladders and read just after; ring_mv and
     block_diag_mv must have launched, the tridiagonal kernel not (these
     ladders keep the vertical diffusion explicit).  Then the coarsest
@@ -6384,10 +6425,10 @@ def phase_convergence(smi, dev=torch.device("cuda"), parts=CONVERGENCE_PARTS):
             first[part] = barotropic_ladder(dev)
             p2_ladder(dev)
         else:
-            first[part] = mms_ladder(part, dev)
+            first[part] = mms_rung(part, dev)
     torch.cuda.synchronize()
     n = counts()
-    log(f"[32 convergence] launches of the ladders ({', '.join(parts)}): "
+    log(f"[32 convergence] launches of the runs ({', '.join(parts)}): "
         f"{n}")
     if not (n["ring_mv"] > 0 and n["block_diag_mv"] > 0
             and n["tridiag"] == 0):
@@ -6529,11 +6570,12 @@ def main():
     name = phase_device()
     smi = card()
     log(f"[device] nvidia-smi: {smi}")
+    clocked("phase 1, the device", T_START)
     t0 = time.perf_counter()
     phase_build()
     phase_kernel_ragged()
     phase_kernel_tridiag_ragged()
-    log(f"[phases 2-3, ragged cases] {time.perf_counter() - t0:.1f} s")
+    clocked("phases 2-3, ragged cases", t0)
     t0 = time.perf_counter()
     # each kernel at the shapes the port runs it at, the 3D step's first
     coords, cells, markers = rofi_mesh_arrays()
@@ -6561,17 +6603,19 @@ def main():
          phase_kernel_tridiag(ROFI_COLS, rows, 2)),
         (f"{ROFI_COLS}x{rows} (ROFI)",
          phase_kernel_tridiag(ROFI_COLS, rows))]}
-    log(f"[phase 3, the port's shapes] {time.perf_counter() - t0:.1f} s")
+    clocked("phase 3, the port's shapes", t0)
     t0 = time.perf_counter()
     n2, s2 = phase_slice2d(smi)
     phase_parity2d()
-    log(f"[phases 4-5] {time.perf_counter() - t0:.1f} s")
+    clocked("phases 4-5", t0)
     t0 = time.perf_counter()
     n3, ms3 = phase_slice3d(smi)
-    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+    clocked("phase 6", t0)
     # phase 31, the partitioned path, its counts set to 0 just before each
     # partitioned run (early: the profiler's captures are whole here)
+    t0 = time.perf_counter()
     n_par, par_shapes = phase_parallel(smi)
+    CLOCK["phase_parallel"] = time.perf_counter() - t0
     for k in KERNELS:  # (ring_mv and block_diag_mv at their own rows)
         shapes[k] += par_shapes[k]
     nm = {k: 0 for k in KERNELS}
@@ -6582,7 +6626,7 @@ def main():
         n = phase(*args)
         for k in KERNELS:
             nm[k] += n[k]
-        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+        clocked(phase.__name__, t0)
     ng = {k: 0 for k in KERNELS}
     for phase, args in ((phase_model3d_gls, (smi, ms3)),
                         (phase_model3d_split, (smi,)),
@@ -6591,7 +6635,7 @@ def main():
         n = phase(*args)
         for k in KERNELS:
             ng[k] += n[k]
-        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+        clocked(phase.__name__, t0)
     # this slice's paths, each with its counts set to 0 just before it
     new = {}
     for key, phase in (("rofi", phase_model3d_rofi),
@@ -6603,7 +6647,7 @@ def main():
         t0 = time.perf_counter()
         out = phase(smi)
         new[key] = out[0] if isinstance(out, tuple) else out
-        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+        clocked(phase.__name__, t0)
     # the morphodynamics, turbine and NH slice, each path's counts set to
     # 0 just before its timed steps; then the element families, the sphere
     # and gmsh (no hand kernel on these paths: each is checked at 0)
@@ -6614,27 +6658,32 @@ def main():
                        ("sphere", phase_sphere)):
         t0 = time.perf_counter()
         new[key] = phase(smi)
-        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+        clocked(phase.__name__, t0)
     # the adjoint: 28a's gradient run, its counts set to 0 just before it
     # (the forward's and then the backward's, summed)
     t0 = time.perf_counter()
     new["adjoint"] = phase_adjoint(smi)
-    log(f"[phase_adjoint] {time.perf_counter() - t0:.1f} s")
+    clocked("phase_adjoint", t0)
     # I/O and forcing: 29a-b, their counts set to 0 just before 29a
     t0 = time.perf_counter()
     new["io"] = phase_io(smi)
     t29 += time.perf_counter() - t0
-    log(f"[phase_io] {time.perf_counter() - t0:.1f} s")
+    clocked("phase_io", t0)
     # the f64 checks, the profile processes, and then the demos and
     # examples (phase 30), each in a process that sets its counts to 0
     # just before its script, beside the checks
+    t0 = time.perf_counter()
     interpolate_checks()
     function_api_checks()
+    clocked("30 interpolate and function api checks", t0)
     scripts = [p for p in example_scripts() if p not in EXAMPLES_RUN_EARLIER]
     t0 = time.perf_counter()
     new["examples"], secs, new["convergence"] = phase_cases(
         smi, scripts, then=(phase_adjoint_checks, phase_io_checks))
     t29 += secs["phase_io_checks"]
+    CLOCK["phase_cases (phase 21's block, with phases 30 and 32)"] = (
+        time.perf_counter() - t0)
+    CLOCK.update({f"in the block: {k}": v for k, v in secs.items()})
     log(f"[phase_cases] with phase 30, {time.perf_counter() - t0:.1f} s")
     log(f"[29 io] phase 29 in all (29a-b, the ring kernels at the North "
         f"Sea's table, 29c-d; the profile process ran in phase 21's "
@@ -6682,6 +6731,7 @@ def main():
             for label, res in shapes[k]
             for dt in (torch.float32, torch.float64)]
         rows.append(row)
+    log(clock_line())
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

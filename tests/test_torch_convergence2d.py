@@ -16,8 +16,9 @@ Each suite has a parity case: at its coarsest rung the port's error norm
 equals the reference's to rtol 1e-9 (f64).  The reference module is
 loaded from its file for its constants, its runs and its sources.  Which
 tests are ``slow`` follows the port's run time on the CPU: the SWE MMS
-ladders take 2-3 min a case and their parity case ~55 s (the reference's
-first compile ~30 s of it); the rest take seconds."""
+ladders take 2-3 min a case, their parity case ~55 s (the reference's
+first compile ~30 s of it) and the check of phase 32's CPU errors 30-40 s
+a case; the rest take seconds."""
 import functools
 import importlib.util
 import math
@@ -115,6 +116,18 @@ def test_swe_mms_coarsest_rung_matches_reference():
     mms = reference_suite("test_swe_mms")
     port = chip_smoke.swe_mms_error(8, "basic", "cpu", mms._CASES["basic"])
     assert_parity(port[0], mms._run_swe(8, "basic"))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", SWE_MMS_CASES)
+def test_swe_mms_cpu_errors_are_the_cards_oracle(case):
+    """``chip_smoke.MMS_CPU_ERRORS``, which phase 32 holds the card's
+    coarsest-rung errors to, is what ``chip_smoke.swe_mms_error`` gives
+    on the CPU at that rung (the run held to the reference above)."""
+    nx = chip_smoke.MMS_LADDER[0]
+    errors, _ = chip_smoke.swe_mms_error(nx, case, "cpu")
+    np.testing.assert_allclose(errors, chip_smoke.MMS_CPU_ERRORS[case],
+                               rtol=1e-12, atol=0.0)
 
 
 # -- tests/test_tracer_mes.py -----------------------------------------------

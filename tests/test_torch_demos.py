@@ -16,6 +16,8 @@ value; the solver's largest velocity for each velocity; at least the
 water depth for the elevation), f64: the two packages sum in other
 orders, and the implicit solves stop at their own tolerances in both.
 The example files name the scripts held to another, with the reason."""
+import contextlib
+import functools
 import os
 from types import SimpleNamespace
 
@@ -25,7 +27,8 @@ import pytest
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
-from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+from test_torch_mesh_builders import (  # noqa: E402
+    pin_mesh_builders, strong_fields)
 
 pin_mesh_builders()
 
@@ -81,6 +84,26 @@ def run_port(script, namespace=None, solvers=None):
                                  solvers=solvers)
 
 
+@contextlib.contextmanager
+def strong_starts(classes):
+    """While the block runs, each solver of ``classes`` gives its fields
+    strong dtypes (:func:`test_torch_mesh_builders.strong_fields`, the
+    same values) when its ``iterate()`` starts: a script's weakly typed
+    start would compile the reference's jitted step twice."""
+    iterates = [(c, c.iterate) for c in classes]
+    for c, iterate in iterates:
+        def strong_iterate(self, *a, _iterate=iterate, **k):
+            strong_fields(self)
+            return _iterate(self, *a, **k)
+
+        c.iterate = functools.wraps(iterate)(strong_iterate)
+    try:
+        yield
+    finally:
+        for c, iterate in iterates:
+            c.iterate = iterate
+
+
 def run_reference(script, tmp_path, namespace=None, solvers=None):
     """The script through ``thetis_tpu`` on the CPU (x64, as
     ``tests/test_examples.py`` runs it), from a copy of demos/ and
@@ -91,7 +114,8 @@ def run_reference(script, tmp_path, namespace=None, solvers=None):
     full = os.path.join(tree, script)
     solvers = [] if solvers is None else solvers
     with (chip_smoke.script_process_state(full),
-          chip_smoke.solvers_made((JFlowSolver2d, JFlowSolver), solvers)):
+          chip_smoke.solvers_made((JFlowSolver2d, JFlowSolver), solvers),
+          strong_starts((JFlowSolver2d, JFlowSolver))):
         ns = chip_smoke.exec_script(full, namespace)
     return SimpleNamespace(namespace=ns, solvers=solvers)
 

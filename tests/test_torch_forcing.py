@@ -35,6 +35,7 @@ import thetis_tpu_torch.model.forcing_adapters as tadapt  # noqa: E402
 import thetis_tpu_torch.utils.netcdf_io as tnc  # noqa: E402
 import thetis_tpu_torch.utils.tides as ttides  # noqa: E402
 import thetis_tpu_torch.utils.timezone as ttz  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-12
 PKGS = {"ref": dict(forcing=jforcing, adapt=jadapt, nc=jnc, tides=jtides,

@@ -26,6 +26,7 @@ import thetis_tpu_torch as tapi  # noqa: E402
 from thetis_tpu_torch.mesh import generation as tgen  # noqa: E402
 from thetis_tpu_torch.fem.functionspace import (  # noqa: E402
     Function as TFunction, FunctionSpace as TFS)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 SPACES = {"DG1": 1, "vector DG1": 2}

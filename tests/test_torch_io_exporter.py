@@ -39,6 +39,7 @@ from thetis_tpu_torch.mesh.generation import (  # noqa: E402
     RectangleMesh as TRect)
 from thetis_tpu_torch.model import exporter as texp  # noqa: E402
 from thetis_tpu_torch.model.field_defs import FieldDict  # noqa: E402
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 SPACES = {"p1dg": ("DG", 1, 1), "cg1": ("CG", 1, 1), "vector": ("DG", 1, 2)}

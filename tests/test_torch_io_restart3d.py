@@ -29,7 +29,8 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 h5py = pytest.importorskip("h5py")
 
-from test_torch_mesh_builders import pin_mesh_builders  # noqa: E402
+from test_torch_mesh_builders import (  # noqa: E402
+    pin_mesh_builders, strong_fields)
 
 pin_mesh_builders()
 
@@ -133,6 +134,7 @@ def runs(tmp_path_factory):
     r["port_restart"] = fields(b)
     r["port_series"] = (series(d / "port_full"), series(d / "port_restart"))
     js = ref_solver(d / "ref", 1200.0)
+    strong_fields(js)  # one compile of the reference's advance, not two
     js.iterate()
     r["ref_full"] = fields(js)
     r["ref_series"] = series(d / "ref")

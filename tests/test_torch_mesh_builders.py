@@ -16,11 +16,15 @@ with O(1) differences.
 process: the native one when both load it, else both fallbacks.  Every
 port test module that builds meshes of both packages calls it when it is
 imported, before its first mesh.  The tests below put the two packages
-in each combination of builder states, pin, and hold the tables equal."""
+in each combination of builder states, pin, and hold the tables equal.
+
+The parity modules share one more helper from here:
+:func:`strong_fields`, for a reference solver that steps more than
+once (its jitted step is then compiled once, not twice)."""
 import numpy as np
 import pytest
 
-pytest.importorskip("jax")
+jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import thetis_tpu.native as jnative  # noqa: E402
@@ -39,6 +43,20 @@ def pin_mesh_builders():
     if jnative.get_meshbuild() is None or tnative.get_meshbuild() is None:
         for mod in (jnative, tnative):
             mod._lib, mod._tried = None, True
+
+
+def strong_fields(solver):
+    """Give a reference solver's weakly typed field arrays (a start made
+    from a Python scalar) a strong dtype of their own, the same values.
+    The reference's jitted step takes its state as arguments: a weakly
+    typed start and the strongly typed state the first step returns are
+    two signatures, so a run that calls the step again (``iterate()``
+    over several exports, or step by step under ``update_forcings``)
+    traces and compiles the whole step twice."""
+    for f in solver.fields.values():
+        data = getattr(f, "data", None)
+        if getattr(data, "weak_type", False):
+            f.data = jax.numpy.asarray(data, dtype=data.dtype)
 
 
 def force_numpy(monkeypatch, mod):
@@ -77,3 +95,23 @@ def test_pinned_builders_number_facets_alike(kind, numpy_side, monkeypatch):
                                       getattr(jm, name + "_np"), name)
     if numpy_side == "neither" and jnative.get_meshbuild() is not None:
         assert tnative.get_meshbuild() is not None
+
+
+def test_strong_fields_keep_values_and_drop_weak_types():
+    """A weakly typed start is made strong, bit for bit; a strong one and
+    a field without data are left as they are."""
+    import jax.numpy as jnp
+    from types import SimpleNamespace
+
+    weak = jnp.full((4, 3), 10.0)
+    strong = jnp.arange(3.0, dtype=weak.dtype)
+    fields = {"temp_3d": SimpleNamespace(data=weak),
+              "salt_3d": SimpleNamespace(data=strong),
+              "bathymetry": SimpleNamespace()}
+    assert weak.weak_type and not strong.weak_type
+    strong_fields(SimpleNamespace(fields=fields))
+    got = fields["temp_3d"].data
+    assert not got.weak_type and got.dtype == weak.dtype
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(weak))
+    assert fields["salt_3d"].data is strong
+    assert not hasattr(fields["bathymetry"], "data")

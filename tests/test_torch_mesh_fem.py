@@ -27,6 +27,7 @@ from thetis_tpu_torch.fem.functionspace import (  # noqa: E402
     FunctionSpace as TFS, Function as TFunction)
 from thetis_tpu_torch.fem.assembly import (  # noqa: E402
     DGAssembler as TAsm, coefficient_cell_q as t_coeff)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 F64 = torch.float64
 MESHES = {

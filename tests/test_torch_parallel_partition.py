@@ -24,6 +24,7 @@ from thetis_tpu_torch.parallel.partition import (  # noqa: E402
     StripePartition as TStripe)
 from thetis_tpu_torch.parallel.submesh import (  # noqa: E402
     HaloPartition as THalo, SubMesh)
+from test_torch_flowsolver2d import one_torch_thread  # noqa: E402,F401
 
 #: (nx, ny, partitions): the reference tests' meshes and the bench's 4
 CASES = [(16, 4, 8), (16, 8, 8), (16, 8, 4), (16, 8, 1), (12, 6, 3)]

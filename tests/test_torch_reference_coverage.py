@@ -104,7 +104,7 @@ MIRRORED = {
     "test_examples.py::test_example_runs":
         "test_torch_examples_2d.py::test_example_runs_through_the_port",
     "test_examples.py::test_columbia_plume_file_driven_forcing":
-        "test_torch_reference_suites_examples.py::"
+        "test_torch_examples_3d.py::"
         "test_columbia_plume_file_driven_forcing",
     **_same("test_fem_core.py", [
         "test_mesh_area_and_boundary", "test_outward_normals_closed",
@@ -154,7 +154,7 @@ MIRRORED = {
         "test_law_of_wall_bottom_friction", "test_smagorinsky_wired"],
         "test_torch_reference_suites3d.py"),
     "test_multiple_tracers.py::test_multiple_tracers_demo":
-        "test_torch_reference_suites_waves.py::test_multiple_tracers_demo",
+        "test_torch_reference_suites.py::test_multiple_tracers_demo",
     "test_native.py::test_native_facets_match_numpy":
         "test_torch_reference_suites.py::test_native_facets_match_numpy",
     **_same("test_netcdf_io.py", [
@@ -233,7 +233,7 @@ MIRRORED = {
         "test_3d_time_step_control", "test_limiter3d"],
         "test_torch_reference_suites_model.py"),
     "test_standing_wave.py::test_standing_wave_channel":
-        "test_torch_reference_suites_waves.py::test_standing_wave_channel",
+        "test_torch_reference_suites.py::test_standing_wave_channel",
     **_same("test_swe_channel.py", [
         "test_initial_norm_matches_reference",
         "test_crank_nicolson_demo_trace",
@@ -273,13 +273,13 @@ MIRRORED = {
     **_same("test_checkpointing.py", [
         "test_forward_gradient_checkpoint_consistency",
         "test_long_inversion_gradient_bounded_memory"],
-        "test_torch_reference_suites_adjoint.py"),
+        "test_torch_adjoint_api.py"),
     **_same("test_inversion.py", [
         "test_inversion_recovers_manning", "test_inversion_taylor"],
-        "test_torch_reference_suites_adjoint.py"),
+        "test_torch_adjoint_api.py"),
     **_same("test_williamson.py", [
         "test_lauter3_unsteady", "test_williamson5_facade"],
-        "test_torch_reference_suites_sphere.py"),
+        "test_torch_sphere.py"),
 }
 
 #: ``reference_file::test`` -> why no port test mirrors it (its ROADMAP
